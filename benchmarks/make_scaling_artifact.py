@@ -1,10 +1,10 @@
-"""Assemble SCALING_r05.json: CPU virtual-mesh tracks + TPU single-chip point.
+"""Assemble SCALING.json: CPU virtual-mesh tracks + one-GPU point.
 
 Runs the full weak-scaling harness (benchmarks/scaling.py) in a CPU child —
 its three tracks (shard_map sweep, process-parallel, jax.distributed
 2-process with the psum payload sweep) only make sense on the virtual mesh —
-then measures the same EM iteration on the one real TPU chip this machine
-can reach and records it as ``tpu_single_chip``.
+then measures the same EM iteration on the default backend's first device
+(a GPU) and records it as ``gpu_single_card``.
 
     python benchmarks/make_scaling_artifact.py
 """
@@ -15,7 +15,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-OUT = REPO / "SCALING_r05.json"
+OUT = REPO / "SCALING.json"
 
 
 def main():
@@ -32,25 +32,24 @@ def main():
         raise SystemExit(f"CPU scaling run failed:\n{cpu.stderr[-3000:]}")
     out = json.loads(cpu.stdout.strip().splitlines()[-1])
 
-    print("# running TPU single-chip point", file=sys.stderr, flush=True)
-    tpu_env = dict(os.environ)
-    tpu_env.pop("JAX_PLATFORMS", None)
-    tpu_env.pop("XLA_FLAGS", None)
-    tpu = subprocess.run(
+    print("# running the one-GPU point", file=sys.stderr, flush=True)
+    gpu_env = dict(os.environ)
+    gpu_env.pop("JAX_PLATFORMS", None)
+    gpu_env.pop("XLA_FLAGS", None)
+    gpu = subprocess.run(
         [sys.executable, str(REPO / "benchmarks" / "scaling.py"), "--one", "1"],
-        env=tpu_env, capture_output=True, text=True, timeout=3600,
+        env=gpu_env, capture_output=True, text=True, timeout=3600,
     )
-    if tpu.returncode == 0:
-        point = json.loads(tpu.stdout.strip().splitlines()[-1])
+    if gpu.returncode == 0:
+        point = json.loads(gpu.stdout.strip().splitlines()[-1])
         point["note"] = (
-            "same harness on the one real TPU chip this machine can reach "
-            "(python benchmarks/scaling.py with the default backend); the "
-            "multi-device sweep runs on the CPU virtual-mesh tracks above "
-            "because multi-chip hardware is not available here"
+            "same harness on one card (python benchmarks/scaling.py --one 1 "
+            "with the default backend); the multi-device sweep above runs on "
+            "the CPU virtual-mesh tracks"
         )
-        out["tpu_single_chip"] = point
+        out["gpu_single_card"] = point
     else:
-        out["tpu_single_chip"] = {"error": tpu.stderr[-500:]}
+        out["gpu_single_card"] = {"error": gpu.stderr[-500:]}
 
     commit = subprocess.run(
         ["git", "rev-parse", "HEAD"], cwd=str(REPO),

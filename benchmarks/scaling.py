@@ -3,9 +3,9 @@
 Per-shard problem size stays constant (weak scaling); the efficiency at N
 devices is throughput(N) / (N * throughput(1)). The only collective per
 iteration is the psum of the M-step partials, so efficiency should stay
-near 1.0 on ICI-connected slices.
+near 1.0 on NVLink-connected cards.
 
-Run on real hardware when multiple chips/hosts are available:
+On a multi-GPU host it sweeps the visible cards:
     python benchmarks/scaling.py
 On a CPU host it exercises the virtual 8-device mesh (validates the
 harness, not a hardware measurement).
@@ -20,11 +20,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np
 
-from demuxalot_tpu.utils.platform import (
-    enable_persistent_compilation_cache, honor_jax_platforms_env,
-)
+from demuxalot_tpu.utils.platform import enable_persistent_compilation_cache
 
-honor_jax_platforms_env()
 enable_persistent_compilation_cache()
 
 # default shard size matches a realistic per-chip serving slice; small
@@ -38,7 +35,6 @@ DOUBLET_PRIOR = 0.0  # EM default
 
 def measure_em(mesh_devices, n_barcodes, with_psum: bool = True):
     import jax
-    import jax.numpy as jnp
 
     from demuxalot_tpu.ops import likelihood as L
     from demuxalot_tpu.parallel.mesh import make_mesh
@@ -56,25 +52,11 @@ def measure_em(mesh_devices, n_barcodes, with_psum: bool = True):
 
     sh = ShardedDemultiplexer(make_mesh(mesh_devices))
     packed = ColumnDataset(cb, vid, q)
-    entry_e, entry_m = sh._shard_inputs(
-        packed, n_barcodes, n_genotypes, n_variants, build_mstep=True
-    )
-    donor_major = entry_e["tiled"] is not None and entry_m["layout"] is not None
-    state0 = np.ascontiguousarray(betas.T) if donor_major else betas
-    betas_r, v2s_r, one_r = sh._replicate(state0, v2s, np.float32(1.0))
-    estep, eargs = sh._make_estep(
-        entry_e, mixing, pen, N_SNPS, 0.01,
-        max_per_snp=(2 if donor_major else 0), donor_major=donor_major,
-    )
-    mstep, margs = sh._make_mstep(
-        entry_e, entry_m, n_variants, n_genotypes, donor_major=donor_major
-    )
-
-    @jax.jit
-    def trivial(x):
-        return jnp.sum(x) * 1.0000001
-
-    small = jnp.ones((8,))
+    entry_e, entry_m = sh._shard_inputs(packed, n_barcodes, build_mstep=True)
+    betas_r, v2s_r, one_r = sh._replicate(betas, v2s, np.float32(1.0))
+    # sim's variant2snp is SNP-sorted, two variants per SNP
+    estep, eargs = sh._make_estep(entry_e, mixing, pen, N_SNPS, 0.01, max_per_snp=2)
+    mstep, margs = sh._make_mstep(entry_m, n_variants, n_genotypes)
 
     def em_iter(addition):
         _logits, probs = estep(betas_r, addition, v2s_r, *eargs)
@@ -93,25 +75,17 @@ def measure_em(mesh_devices, n_barcodes, with_psum: bool = True):
             mesh=sh.mesh, in_specs=_PSpec(), out_specs=_PSpec(), check_vma=False,
         ))
 
-    add = em_iter(sh._replicate(np.zeros_like(state0))[0])
-    float(jnp.sum(add))  # force
+    add = jax.block_until_ready(em_iter(sh._replicate(np.zeros_like(betas))[0]))
     if psum_only is not None:
-        float(jnp.sum(psum_only(add)))  # compile
-
-    def _lat():
-        return min(
-            (lambda t0: (float(trivial(small)), time.perf_counter() - t0)[1])(time.perf_counter())
-            for _ in range(5)
-        )
+        jax.block_until_ready(psum_only(add))  # compile
 
     def _best(thunk, iters=5):
-        lat = _lat()
         times = []
         for _ in range(iters):
             t0 = time.perf_counter()
-            float(jnp.sum(thunk()))
+            jax.block_until_ready(thunk())
             times.append(time.perf_counter() - t0)
-        return max(min(times) - lat, 1e-9)
+        return min(times)
 
     em_time = _best(lambda: em_iter(add))
     psum_time = _best(lambda: psum_only(add)) if psum_only is not None else None
@@ -144,7 +118,7 @@ def _measure_subprocess(n: int, n_cores: int):
     in-process weak scaling conflates core oversubscription with collective
     overhead. Pinning the n-device measurement to n cores emulates "each
     device owns equal hardware", which is the quantity weak scaling is
-    supposed to track (a real TPU slice gives every chip its own silicon).
+    supposed to track (a multi-GPU host gives every card its own silicon).
     """
     import subprocess
 
@@ -164,7 +138,7 @@ def _measure_subprocess(n: int, n_cores: int):
 def _measure_process_parallel(n: int):
     """N concurrent single-device children, one core each — the chip model.
 
-    A real TPU slice gives every chip private compute and memory; the CPU
+    A multi-GPU host gives every card private compute and memory; the CPU
     analogue of that is N OS processes each pinned to its own core, NOT N
     virtual devices sharing one process's runtime (whose scheduler overhead
     has no hardware counterpart). Each child runs the identical per-shard EM
@@ -270,7 +244,7 @@ def main():
                               "private core; this VM has too few cores for "
                               f"an {n}-way point (children would time-share "
                               "cores and the number would measure host "
-                              "oversubscription, which has no TPU analogue)",
+                              "oversubscription, which has no multi-GPU analogue)",
                 }
                 break
             runs = [_measure_process_parallel(n) for _ in range(pp_repeats)]
@@ -286,8 +260,8 @@ def main():
         out["weak_scaling_process_parallel"] = pp
 
         # third track: 2 OS processes joined through jax.distributed — the
-        # faithful DCN/multi-host analogue (cross-process collectives on the
-        # same machinery a pod uses). Its 1-process twin at the identical
+        # faithful multi-host analogue (cross-process collectives on the
+        # same machinery a multi-host cluster uses). Its 1-process twin at the identical
         # shape isolates the cross-process overhead, which projects the
         # 2-host efficiency from measured quantities.
         try:
@@ -303,7 +277,7 @@ def main():
             "faithful analogue of chips with private silicon — with the measured "
             "psum added; this track's weak_scaling_efficiency is the headline. "
             "The gap between the tracks is XLA:CPU in-process multi-device "
-            "runtime overhead, which has no TPU counterpart. (3) "
+            "runtime overhead, which has no multi-GPU counterpart. (3) "
             "jax_distributed_2proc: two OS processes, 4 virtual devices each, "
             "joined into one 8-device mesh through jax.distributed (the "
             "multi-host machinery); its overhead vs the identical-shape "
@@ -349,8 +323,8 @@ def _run_psum_sweep():
 def _measure_2proc_track(repeats: int):
     """jax.distributed 2-process point + identical-shape 1-process twin.
 
-    Besides the single EM-shape overhead constant, sweeps the psum payload
-    (VERDICT r4 #5): overhead(bytes) is fitted from >= 4 measured points in
+    Besides the single EM-shape overhead constant, sweeps the psum payload:
+    overhead(bytes) is fitted from >= 4 measured points in
     both the 2-process and 1-process meshes, and the projected 2-host
     efficiency is evaluated at PMBC's REAL M-step payload (655k variants x
     32 donors f32 ~ 84 MB), not just at the 2 MB harness shape.
@@ -462,9 +436,9 @@ def _measure_2proc_track(repeats: int):
             ),
             "note": (
                 "overhead measured over localhost gRPC between two OS "
-                "processes (the multi-host DCN machinery); a real pod's psum "
-                "rides ICI at orders-of-magnitude higher bandwidth, so these "
-                "efficiencies are lower bounds for ICI-connected slices"
+                "processes (the multi-host machinery); a psum between cards "
+                "rides NVLink at orders-of-magnitude higher bandwidth, so these "
+                "efficiencies are lower bounds for NVLink-connected cards"
             ),
         }
     return result

@@ -2,7 +2,7 @@
 
 Launches two OS processes with 4 virtual CPU devices each, joined through
 jax.distributed into one 8-device mesh, and times EM iterations with the
-shard-local data path — the same machinery a multi-host pod uses. Compare
+shard-local data path — the same machinery a multi-host cluster uses. Compare
 against the single-process 8-device point from benchmarks/scaling.py: the
 delta is the cross-process collective + dispatch overhead.
 
@@ -44,10 +44,10 @@ per_shard = sh._barcodes_per_shard(N_B)
 mine = np.isin(cb // per_shard, sh._local_shard_ids())
 packed = ColumnDataset(cb[mine], vid[mine], q[mine])
 
-entry_e, entry_m = sh._shard_inputs(packed, N_B, n_genotypes, n_variants, build_mstep=True)
+entry_e, entry_m = sh._shard_inputs(packed, N_B, build_mstep=True)
 betas_r, v2s_r, one_r = sh._replicate(betas, v2s, np.float32(1.0))
-estep, eargs = sh._make_estep(entry_e, mixing, pen, N_S, 0.01)
-mstep, margs = sh._make_mstep(entry_e, entry_m, n_variants, n_genotypes)
+estep, eargs = sh._make_estep(entry_e, mixing, pen, N_S, 0.01, max_per_snp=2)
+mstep, margs = sh._make_mstep(entry_m, n_variants, n_genotypes)
 
 def em(addition):
     _lg, probs = estep(betas_r, addition, v2s_r, *eargs)
@@ -62,7 +62,7 @@ for _ in range(5):
     add.block_until_ready()
     times.append(time.perf_counter() - t0)
 
-# psum payload sweep (VERDICT r4 #5): the iteration's one collective at a
+# psum payload sweep: the iteration's one collective at a
 # range of [V, D] partial sizes, up to PMBC's real payload (~84 MB), so the
 # cross-process overhead can be modeled as a curve instead of one constant
 psum_only = jax.jit(jax.shard_map(

@@ -1,4 +1,4 @@
-"""TPU-native single-cell demultiplexing engine.
+"""Single-cell demultiplexing engine on JAX (XLA, and a fused E-step kernel on NVIDIA GPUs).
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of demuxalot:
 UMI-aware SNP counting from BAM files (CPU streaming frontend with its own

@@ -314,7 +314,7 @@ def _cmd_detect_snps(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="demuxalot_tpu",
-        description="TPU-native single-cell demultiplexing pipeline",
+        description="single-cell demultiplexing pipeline (JAX; GPU when available)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -369,11 +369,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    from .utils.platform import (
-        enable_persistent_compilation_cache, honor_jax_platforms_env,
-    )
+    from .utils.platform import enable_persistent_compilation_cache
 
-    honor_jax_platforms_env()
     enable_persistent_compilation_cache()
     args = build_parser().parse_args(argv)
     return args.func(args)

@@ -4,7 +4,7 @@ The ingest stage: stream reads, bucket them into molecules (one molecule =
 one (cell barcode, UMI) pair), and reduce each molecule's reads to a single
 consensus base call per covered SNP position. The output — columnar
 molecule/call tables per chromosome — is the host→device transfer format
-consumed by the packing layer and the TPU kernels.
+consumed by the packing layer and the device kernels.
 
 The probability chain is a hard numeric contract shared with the native C++
 scanner and matching the reference engine (demuxalot/snp_counter.py:142-192):
@@ -20,7 +20,7 @@ scanner and matching the reference engine (demuxalot/snp_counter.py:142-192):
 Scaling stance: the per-chromosome position index is a sorted array queried
 by binary search — memory is O(n_SNPs), independent of chromosome length,
 with no integer-width ceiling (a 250 Mb contig with millions of SNPs costs
-a few MB). Region tasks fan out over processes with joblib; the C++ scanner
+a few MB). Region tasks fan out over spawned processes; the C++ scanner
 (``native/``) replaces the whole Python loop when the standard tag filter
 is in use.
 """
@@ -30,13 +30,13 @@ import math
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple
 
-import joblib
 import numpy as np
 
 from ..bamio import open_alignment
 from ..utils.barcodes import BarcodeHandler
 from ..utils.encoding import compress_base
 from ..utils.files import as_str
+from ..utils.parallel import run_tasks
 from .cellranger import parse_read as default_parse_read
 
 # a molecule's reads are assumed to span < this many bp; the streaming
@@ -377,7 +377,8 @@ def count_snps(
         dict mapping RG values to paths when barcodes carry RG identity
     :param chromosome2positions: SNP positions of interest per chromosome
     :param barcode_handler: whitelist of cell barcodes
-    :param joblib_n_jobs: process fan-out for region shards (None = inline)
+    :param joblib_n_jobs: process fan-out for region shards (None = inline;
+        joblib's convention, see utils.parallel)
     :param parse_read: read-filtering plugin (see frontend.cellranger)
     :param native: use the C++ scanner when available (None = auto). The
         native path requires the default cellranger-style ``parse_read``
@@ -396,19 +397,23 @@ def count_snps(
             return result
 
     tasks = prepare_counting_tasks(bamfile_location, chromosome2positions, barcode_handler=barcode_handler)
-    with joblib.Parallel(n_jobs=joblib_n_jobs, verbose=joblib_verbosity, pre_dispatch="all") as parallel:
-        shard_results = parallel(
-            joblib.delayed(count_call_variants_for_chromosome)(
-                bamfile,
-                chromosome,
-                positions,
+    shard_results = run_tasks(
+        count_call_variants_for_chromosome,
+        [
+            dict(
+                bamfile_or_filename=bamfile,
+                chromosome=chromosome,
+                chromosome_snps_zero_based=positions,
                 start=start,
                 stop=stop,
                 barcode_handler=task_barcode_handler,
                 parse_read=parse_read,
             )
             for bamfile, chromosome, start, stop, positions, task_barcode_handler in tasks
-        )
+        ],
+        n_jobs=joblib_n_jobs,
+        verbosity=joblib_verbosity,
+    )
 
     shards_by_chromosome: Dict[str, List[CompressedSNPCalls]] = {}
     for chromosome, calls in shard_results:

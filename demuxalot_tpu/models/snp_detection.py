@@ -25,13 +25,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
-from joblib import Parallel, delayed
 
 from ..bamio import open_alignment
 from ..frontend import cellranger
 from ..frontend.snp_counter import CompressedSNPCalls, count_snps
 from ..utils.barcodes import BarcodeHandler
 from ..utils.files import as_str
+from ..utils.parallel import run_tasks
 from .demux import Demultiplexer
 from .genotypes import ProbabilisticGenotypes
 
@@ -221,7 +221,7 @@ def detect_snps_for_chromosome(
         chromosome2positions={chromosome: candidate_positions},
         barcode_handler=barcode_handler,
         parse_read=parse_read,
-        joblib_n_jobs=None,  # this already runs inside a joblib worker
+        joblib_n_jobs=None,  # this already runs inside a worker process
         joblib_verbosity=0,
     )
     if chromosome not in recounted:
@@ -322,8 +322,8 @@ def detect_snps_positions(
     sorted_donors = np.unique(list(barcode2donor.values()))
 
     fragment_jobs = [
-        delayed(detect_snps_for_chromosome)(
-            bamfile_location,
+        dict(
+            bamfile_path=bamfile_location,
             chromosome=chromosome,
             start=fragment_start,
             stop=min(fragment_start + max_fragment_step, contig_length),
@@ -339,8 +339,10 @@ def detect_snps_positions(
         for chromosome, contig_length in contigs
         for fragment_start in range(0, contig_length, max_fragment_step)
     ]
-    with Parallel(n_jobs=joblib_n_jobs, verbose=joblib_verbosity, pre_dispatch="all") as parallel:
-        per_fragment_results = parallel(fragment_jobs)
+    per_fragment_results = run_tasks(
+        detect_snps_for_chromosome, fragment_jobs,
+        n_jobs=joblib_n_jobs, verbosity=joblib_verbosity,
+    )
 
     scored_sites = [site for fragment in per_fragment_results for site in fragment]
     if not scored_sites:

@@ -1,39 +1,51 @@
-"""Native (C++) components: build-on-demand via the system toolchain.
+"""Native (C++) components: built on first use with the system toolchain.
 
-The shared library is compiled from scanner.cpp on first use and cached next
-to the source. Absence of a working toolchain degrades gracefully — callers
-fall back to the pure-Python paths.
+Each library is compiled from its tracked source into ``_build/`` (next to
+this file, git-ignored) under a file name keyed on a hash of the source and
+the compile command, so a copied tree never loads a library built from other
+sources or with other flags. The command targets the generic x86-64 ISA (no
+``-march=native``), so a library built on one host also runs on another.
+Absence of a working toolchain degrades gracefully — callers fall back to
+the pure-Python paths — but the loaders below raise, so callers that need
+the native path can insist on it.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
 import subprocess
 from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
-_SRC = _DIR / "scanner.cpp"
-_LIB = _DIR / "libdemuxscan.so"
+BUILD_DIR = _DIR / "_build"
+_SCAN_SRC = _DIR / "scanner.cpp"
 _HOST_SRC = _DIR / "hostops.cpp"
-_HOST_LIB = _DIR / "libdemuxhost.so"
 
 _lib_handle = None
 _host_handle = None
 
 
-def _compile(src: Path, lib: Path, extra=()) -> None:
-    import os
-
-    tmp = f"{lib}.{os.getpid()}.tmp"  # unique per process: parallel workers may race
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        str(src), *extra, "-o", tmp,
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
-    Path(tmp).replace(lib)  # atomic on POSIX
+def compile_command(src: Path, out: str, extra=()) -> list:
+    return ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(src), *extra, "-o", out]
 
 
-def _build() -> None:
-    _compile(_SRC, _LIB, extra=("-lz",))
+def library_path(src: Path, extra=()) -> Path:
+    """Where the library for ``src`` built with ``extra`` flags lives."""
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update("\0".join(compile_command(Path(src.name), "OUT", extra)).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_library(src: Path, extra=()) -> Path:
+    """Compile ``src`` unless its keyed library exists; return the path."""
+    lib = library_path(src, extra)
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"  # unique per process: parallel workers may race
+        subprocess.run(compile_command(src, tmp, extra), check=True, capture_output=True)
+        Path(tmp).replace(lib)  # atomic on POSIX
+    return lib
 
 
 def load_host_library() -> ctypes.CDLL:
@@ -41,9 +53,7 @@ def load_host_library() -> ctypes.CDLL:
     global _host_handle
     if _host_handle is not None:
         return _host_handle
-    if not _HOST_LIB.exists() or _HOST_LIB.stat().st_mtime < _HOST_SRC.stat().st_mtime:
-        _compile(_HOST_SRC, _HOST_LIB, extra=("-pthread",))
-    lib = ctypes.CDLL(str(_HOST_LIB))
+    lib = ctypes.CDLL(str(build_library(_HOST_SRC, extra=("-pthread",))))
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.demux_radix_argsort_i64.restype = None
     lib.demux_radix_argsort_i64.argtypes = [i64p, ctypes.c_int64, i64p]
@@ -70,27 +80,6 @@ def load_host_library() -> ctypes.CDLL:
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.demux_group_sum_broadcast.restype = None
     lib.demux_group_sum_broadcast.argtypes = [i64p, f64p, ctypes.c_int64, f64p]
-    lib.demux_tile_scatter.restype = None
-    lib.demux_tile_scatter.argtypes = [
-        i32p, i32p, f32p, ctypes.c_int64, i64p, i64p,
-        ctypes.c_int32, ctypes.c_int32, i32p, f32p, i32p,
-    ]
-    lib.demux_band_counts.restype = None
-    lib.demux_band_counts.argtypes = [
-        i32p, i32p, ctypes.c_int64, i32p, ctypes.c_int64, ctypes.c_int32, i64p,
-    ]
-    lib.demux_tile_scatter_banded.restype = None
-    lib.demux_tile_scatter_banded.argtypes = [
-        i32p, i32p, f32p, ctypes.c_int64,
-        i32p, i64p, ctypes.c_int32,
-        i64p, i64p, ctypes.c_int64,
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-        i32p, f32p, i32p,
-    ]
-    lib.demux_gather3.restype = None
-    lib.demux_gather3.argtypes = [
-        i64p, ctypes.c_int64, i32p, i32p, f32p, i32p, i32p, f32p,
-    ]
     lib.demux_collapse_calls_keyed.restype = ctypes.c_int64
     lib.demux_collapse_calls_keyed.argtypes = [
         i32p, i32p, f32p, ctypes.c_int64, i32p, ctypes.c_int32,
@@ -109,9 +98,7 @@ def load_library() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is not None:
         return _lib_handle
-    if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-        _build()
-    lib = ctypes.CDLL(str(_LIB))
+    lib = ctypes.CDLL(str(build_library(_SCAN_SRC, extra=("-lz",))))
 
     lib.scan_region.restype = ctypes.c_void_p
     lib.scan_region.argtypes = [

@@ -1,7 +1,7 @@
 // Host-side packing primitives: stable radix argsort and hash join.
 //
-// The packing layer (ops/packing.py) and the kernel layout builders
-// (ops/tiling.py, models/demux.py) are dominated by two numpy calls at
+// The packing layer (ops/packing.py) and the device layout builders
+// (models/demux.py) are dominated by two numpy calls at
 // product scale (~9M calls): np.argsort(kind="stable") on integer keys
 // (~1.7 s) and np.searchsorted of calls into the variant registry
 // (~1.4 s). Both are memory-shaped problems a specialized C++ routine
@@ -9,10 +9,10 @@
 // open-addressing hash join whose table fits in L2.
 //
 // The reference has no counterpart (its packing is numpy end to end,
-// demuxalot/demux.py:276-392); this is the "native runtime around the
-// device compute path" layer of the TPU build.
+// demuxalot/demux.py:276-392); this is the native runtime around the
+// device compute path.
 //
-// Build: g++ -O3 -march=native -std=c++17 -shared -fPIC hostops.cpp -o libdemuxhost.so
+// Build: g++ -O3 -std=c++17 -shared -fPIC -pthread hostops.cpp -o libhostops.so
 // (no external dependencies; see native/__init__.py for the on-demand build)
 
 #include <algorithm>
@@ -592,154 +592,6 @@ void demux_group_sum_broadcast(const int64_t* keys, const double* w,
     for (int64_t i = run; i < end; i++) out[order[i]] = sum;
     run = end;
   }
-}
-
-// Fused slot scatter for the tiled kernel layout
-// (ops/tiling.py tile_barcode_calls): one pass over barcode-sorted calls
-// computing each call's chunk/lane slot and writing vid/q/seg_group.
-// b_offset[b] = slot offset of barcode b within its tile's call stream,
-// chunk_start[t] = first chunk of tile t; outputs are pre-filled with the
-// padding values (vid 0, q 1, seg 0) by the caller. Threaded over ranges
-// split at barcode boundaries: slots of distinct barcodes are disjoint, so
-// threads never write the same cell.
-void demux_tile_scatter(const int32_t* cb, const int32_t* vid, const float* q,
-                        int64_t n, const int64_t* b_offset,
-                        const int64_t* chunk_start, int32_t tb, int32_t tc,
-                        int32_t* out_vid, float* out_q, int32_t* out_seg) {
-  if (n <= 0) return;
-  const int32_t G = tc >= 128 ? tc / 128 : 1;
-  const int32_t GPC = tc / G;
-  const int n_threads = pick_threads(n);
-  std::vector<int64_t> range_lo(n_threads + 1);
-  range_lo[0] = 0;
-  range_lo[n_threads] = n;
-  const int64_t block = (n + n_threads - 1) / n_threads;
-  for (int t = 1; t < n_threads; t++) {
-    int64_t i = std::min<int64_t>(n, t * block);
-    while (i < n && i > 0 && cb[i] == cb[i - 1]) i++;  // barcode boundary
-    range_lo[t] = std::max(i, range_lo[t - 1]);
-  }
-  auto scatter_fn = [&](int t) {
-    int64_t run_start = 0;
-    int32_t prev_b = -1;
-    for (int64_t i = range_lo[t]; i < range_lo[t + 1]; i++) {
-      int32_t b = cb[i];
-      if (b != prev_b) {
-        run_start = i;
-        prev_b = b;
-      }
-      int64_t s = b_offset[b] + (i - run_start);
-      int64_t tile = b / tb;
-      int64_t c = chunk_start[tile] + s / tc;
-      int32_t iin = (int32_t)(s % tc);
-      int32_t lane = (iin % G) * GPC + iin / G;
-      out_vid[c * tc + lane] = vid[i];
-      out_q[c * tc + lane] = q[i];
-      out_seg[c * GPC + iin / G] = b - (int32_t)(tile * tb);
-    }
-  };
-  run_threaded(n_threads, scatter_fn);
-}
-
-// Per-(band, barcode) call counts for the banded tiled layout
-// (ops/tiling.py tile_barcode_calls_banded): out[band * nb + b] = number of
-// calls of barcode b whose variant falls in band band_lut[vid]. One
-// threaded pass — replaces the numpy searchsorted + per-band boolean
-// selections. Threads own whole barcodes, so every (band, barcode) cell
-// has exactly one writer. The caller zero-fills out.
-void demux_band_counts(const int32_t* cb, const int32_t* vid, int64_t n,
-                       const int32_t* band_lut, int64_t nb, int32_t n_bands,
-                       int64_t* out) {
-  if (n <= 0) return;
-  const int n_threads = pick_threads(n);
-  std::vector<int64_t> range_lo(n_threads + 1);
-  range_lo[0] = 0;
-  range_lo[n_threads] = n;
-  const int64_t block = (n + n_threads - 1) / n_threads;
-  for (int t = 1; t < n_threads; t++) {
-    int64_t i = std::min<int64_t>(n, t * block);
-    while (i < n && i > 0 && cb[i] == cb[i - 1]) i++;
-    range_lo[t] = std::max(i, range_lo[t - 1]);
-  }
-  auto count_fn = [&](int t) {
-    for (int64_t i = range_lo[t]; i < range_lo[t + 1]; i++)
-      out[(int64_t)band_lut[vid[i]] * nb + cb[i]]++;
-  };
-  run_threaded(n_threads, count_fn);
-}
-
-// Fused banded slot scatter: the whole band-major tiled layout
-// (ops/tiling.py tile_barcode_calls_banded) in ONE threaded pass over the
-// barcode-sorted calls — replacing the per-band numpy pipeline (boolean
-// select x3, per-band scatter, final concatenate) that dominated product-
-// scale layout builds. Per call: band k = band_lut[vid], slot s =
-// b_offset[k*nb + b] + rank-within-(band, barcode), chunk c =
-// chunk_start[k*n_tiles + tile] + s/tc (chunk_start is GLOBAL, band-major),
-// group lane layout as in demux_tile_scatter. out_vid receives BAND-LOCAL
-// variant ids (vid - band_base[k]). Call order within a (band, barcode)
-// group is preserved (ranks increase in input order), matching the
-// stability of the numpy boolean-mask path bit for bit.
-void demux_tile_scatter_banded(
-    const int32_t* cb, const int32_t* vid, const float* q, int64_t n,
-    const int32_t* band_lut, const int64_t* band_base, int32_t n_bands,
-    const int64_t* b_offset, const int64_t* chunk_start, int64_t nb,
-    int32_t n_tiles, int32_t tb, int32_t tc,
-    int32_t* out_vid, float* out_q, int32_t* out_seg) {
-  if (n <= 0) return;
-  const int32_t G = tc >= 128 ? tc / 128 : 1;
-  const int32_t GPC = tc / G;
-  const int n_threads = pick_threads(n);
-  std::vector<int64_t> range_lo(n_threads + 1);
-  range_lo[0] = 0;
-  range_lo[n_threads] = n;
-  const int64_t block = (n + n_threads - 1) / n_threads;
-  for (int t = 1; t < n_threads; t++) {
-    int64_t i = std::min<int64_t>(n, t * block);
-    while (i < n && i > 0 && cb[i] == cb[i - 1]) i++;
-    range_lo[t] = std::max(i, range_lo[t - 1]);
-  }
-  auto scatter_fn = [&](int t) {
-    std::vector<int64_t> rank(n_bands, 0);
-    int32_t prev_b = -1;
-    for (int64_t i = range_lo[t]; i < range_lo[t + 1]; i++) {
-      int32_t b = cb[i];
-      if (b != prev_b) {
-        std::fill(rank.begin(), rank.end(), 0);
-        prev_b = b;
-      }
-      int32_t k = band_lut[vid[i]];
-      int64_t s = b_offset[(int64_t)k * nb + b] + rank[k]++;
-      int64_t tile = b / tb;
-      int64_t c = chunk_start[(int64_t)k * n_tiles + tile] + s / tc;
-      int32_t iin = (int32_t)(s % tc);
-      int32_t lane = (iin % G) * GPC + iin / G;
-      out_vid[c * tc + lane] = vid[i] - (int32_t)band_base[k];
-      out_q[c * tc + lane] = q[i];
-      out_seg[c * GPC + iin / G] = b - (int32_t)(tile * tb);
-    }
-  };
-  run_threaded(n_threads, scatter_fn);
-}
-
-// Threaded permutation gather of the three call columns by a sort order —
-// the numpy fancy-index gathers (cb[order], vid[order], q[order]) cost
-// ~0.4 s EACH at 22M calls; one fused threaded pass does all three.
-void demux_gather3(const int64_t* order, int64_t n, const int32_t* a,
-                   const int32_t* b, const float* c, int32_t* out_a,
-                   int32_t* out_b, float* out_c) {
-  if (n <= 0) return;
-  const int n_threads = pick_threads(n);
-  const int64_t block = (n + n_threads - 1) / n_threads;
-  auto gather_fn = [&](int t) {
-    const int64_t lo = t * block, hi = std::min<int64_t>(n, lo + block);
-    for (int64_t i = lo; i < hi; i++) {
-      const int64_t j = order[i];
-      out_a[i] = a[j];
-      out_b[i] = b[j];
-      out_c[i] = c[j];
-    }
-  };
-  run_threaded(n_threads, gather_fn);
 }
 
 }  // extern "C"

@@ -192,8 +192,7 @@ def collapse_calls_keyed(vid: np.ndarray, cb: np.ndarray, p: np.ndarray,
         and (n == 0 or (int(vid.min()) >= 0 and int(cb.min()) >= 0))
         and (len(lut) == 0 or int(lut.min()) >= 0)
         # the C++ reads lut[vid] unchecked; a caller sizing bug must hit
-        # the numpy path's IndexError, not corrupt memory (same guard as
-        # band_counts)
+        # the numpy path's IndexError, not corrupt memory
         and (n == 0 or int(vid.max()) < len(lut))
     )
     if native_ok:
@@ -281,157 +280,6 @@ def group_sum_broadcast(keys: np.ndarray, weights: np.ndarray):
         out.ctypes.data_as(f64p),
     )
     return out
-
-
-def tile_scatter(cb_sorted, vid_sorted, q_sorted, b_offset, chunk_start,
-                 tb: int, tc: int, out_vid, out_q, out_seg) -> bool:
-    """Fused slot scatter for the tiled layout; False = use the numpy path.
-
-    Writes into the pre-filled (padding-valued) out arrays in place.
-    """
-    lib = _host_lib()
-    n = len(cb_sorted)
-    if lib is None or n < 65_536:
-        return False
-    cb_sorted = np.ascontiguousarray(cb_sorted, dtype=np.int32)
-    vid_sorted = np.ascontiguousarray(vid_sorted, dtype=np.int32)
-    q_sorted = np.ascontiguousarray(q_sorted, dtype=np.float32)
-    b_offset = np.ascontiguousarray(b_offset, dtype=np.int64)
-    chunk_start = np.ascontiguousarray(chunk_start, dtype=np.int64)
-    assert out_vid.flags.c_contiguous and out_q.flags.c_contiguous
-    assert out_seg.flags.c_contiguous
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.demux_tile_scatter(
-        cb_sorted.ctypes.data_as(i32p), vid_sorted.ctypes.data_as(i32p),
-        q_sorted.ctypes.data_as(f32p), n,
-        b_offset.ctypes.data_as(i64p), chunk_start.ctypes.data_as(i64p),
-        tb, tc,
-        out_vid.ctypes.data_as(i32p), out_q.ctypes.data_as(f32p),
-        out_seg.ctypes.data_as(i32p),
-    )
-    return True
-
-
-def band_counts(cb_sorted, vid_sorted, band_lut, nb_pad: int, n_bands: int):
-    """Calls per (band, barcode) as an [n_bands, nb_pad] int64 array.
-
-    None = use the numpy path. ``band_lut`` maps variant id -> band index.
-    """
-    lib = _host_lib()
-    n = len(cb_sorted)
-    if lib is None or n < 65_536:
-        return None
-    cb_sorted = np.ascontiguousarray(cb_sorted, dtype=np.int32)
-    vid_sorted = np.ascontiguousarray(vid_sorted, dtype=np.int32)
-    band_lut = np.ascontiguousarray(band_lut, dtype=np.int32)
-    # the C++ indexes band_lut[vid] and out[band * nb_pad + cb] unchecked;
-    # a caller-side sizing bug must fall back to the (safe, clipping) numpy
-    # path instead of corrupting memory
-    if (
-        int(vid_sorted.max()) >= len(band_lut)
-        or int(vid_sorted.min()) < 0
-        or int(cb_sorted.max()) >= nb_pad
-        or int(cb_sorted.min()) < 0
-    ):
-        return None
-    out = np.zeros(n_bands * nb_pad, dtype=np.int64)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.demux_band_counts(
-        cb_sorted.ctypes.data_as(i32p), vid_sorted.ctypes.data_as(i32p), n,
-        band_lut.ctypes.data_as(i32p), nb_pad, n_bands,
-        out.ctypes.data_as(i64p),
-    )
-    return out.reshape(n_bands, nb_pad)
-
-
-def tile_scatter_banded(cb_sorted, vid_sorted, q_sorted, band_lut, band_base,
-                        b_offset, chunk_start, n_tiles: int, tb: int, tc: int,
-                        out_vid, out_q, out_seg) -> bool:
-    """Fused band-major slot scatter; False = use the per-band numpy path.
-
-    ``b_offset`` is [n_bands, nb_pad] (slot of each (band, barcode) within
-    its tile's call stream), ``chunk_start`` [n_bands, n_tiles] GLOBAL
-    band-major chunk indices; outputs are pre-filled with padding values
-    (vid 0, q 1, seg 0) and written in place. Emitted variant ids are
-    band-local (vid - band_base[band]).
-    """
-    lib = _host_lib()
-    n = len(cb_sorted)
-    if lib is None or n < 65_536:
-        return False
-    cb_sorted = np.ascontiguousarray(cb_sorted, dtype=np.int32)
-    vid_sorted = np.ascontiguousarray(vid_sorted, dtype=np.int32)
-    q_sorted = np.ascontiguousarray(q_sorted, dtype=np.float32)
-    band_lut = np.ascontiguousarray(band_lut, dtype=np.int32)
-    band_base = np.ascontiguousarray(band_base, dtype=np.int64)
-    b_offset = np.ascontiguousarray(b_offset, dtype=np.int64)
-    chunk_start = np.ascontiguousarray(chunk_start, dtype=np.int64)
-    n_bands = len(band_base)
-    nb_pad = b_offset.size // n_bands
-    assert out_vid.flags.c_contiguous and out_q.flags.c_contiguous
-    assert out_seg.flags.c_contiguous
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.demux_tile_scatter_banded(
-        cb_sorted.ctypes.data_as(i32p), vid_sorted.ctypes.data_as(i32p),
-        q_sorted.ctypes.data_as(f32p), n,
-        band_lut.ctypes.data_as(i32p), band_base.ctypes.data_as(i64p), n_bands,
-        b_offset.ctypes.data_as(i64p), chunk_start.ctypes.data_as(i64p), nb_pad,
-        n_tiles, tb, tc,
-        out_vid.ctypes.data_as(i32p), out_q.ctypes.data_as(f32p),
-        out_seg.ctypes.data_as(i32p),
-    )
-    return True
-
-
-def gather3(order, a, b, c):
-    """(a[order], b[order], c[order]) in one threaded pass; None = numpy.
-
-    a/b int32, c float32, order int64.
-    """
-    lib = _host_lib()
-    n = len(order)
-    if lib is None or n < 65_536:
-        return None
-    order = np.ascontiguousarray(order, dtype=np.int64)
-    a = np.ascontiguousarray(a, dtype=np.int32)
-    b = np.ascontiguousarray(b, dtype=np.int32)
-    c = np.ascontiguousarray(c, dtype=np.float32)
-    out_a = np.empty(n, np.int32)
-    out_b = np.empty(n, np.int32)
-    out_c = np.empty(n, np.float32)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.demux_gather3(
-        order.ctypes.data_as(i64p), n,
-        a.ctypes.data_as(i32p), b.ctypes.data_as(i32p), c.ctypes.data_as(f32p),
-        out_a.ctypes.data_as(i32p), out_b.ctypes.data_as(i32p),
-        out_c.ctypes.data_as(f32p),
-    )
-    return out_a, out_b, out_c
-
-
-def take3(order, a, b, c):
-    """(a[order], b[order], c[order]) as (int32, int32, float32) arrays.
-
-    Convenience over :func:`gather3` that always returns — layout builders
-    gather the three call columns by a sort order constantly, and the fused
-    threaded pass beats three numpy fancy-index gathers ~4x at product
-    scale.
-    """
-    native = gather3(order, a, b, c)
-    if native is not None:
-        return native
-    return (
-        np.asarray(a, dtype=np.int32)[order],
-        np.asarray(b, dtype=np.int32)[order],
-        np.asarray(c, dtype=np.float32)[order],
-    )
 
 
 def match_keys(table_keys: np.ndarray, table_vals: np.ndarray,

@@ -5,13 +5,12 @@ The core computation is, per barcode b and pseudo-genotype g:
     logits[b, g] = penalty[g] + Σ_{calls c of b} log(p[v_c, g]·(1−q_c) + max(q_c, 1e-4))
 
 with p[v, g] the per-variant genotype probability — for a doublet column
-(g1, g2) the mean of the two donors. The TPU-native structure: gather
-genotype rows per call, expand the doublet axis with one small matmul
-([calls, donors] @ [donors, pseudogenotypes], MXU), take the log (VPU), and
-segment-sum into barcode rows (calls pre-sorted by barcode). A Pallas kernel
-fusing these stages lives in ``pallas_likelihood.py``; this module is the
-plain-XLA path and the numerical reference (mirrors demuxalot/demux.py:
-158-274).
+(g1, g2) the mean of the two donors. The plain-XLA structure: gather the
+two donor probabilities of every column per call, average them
+elementwise, take the log, and segment-sum into barcode rows (calls
+pre-sorted by barcode). The fused GPU kernel for the same sum lives in
+``estep_kernel.py``; this module is the XLA path and the numerical
+reference (mirrors demuxalot/demux.py:158-274).
 
 All functions are pure and jit-friendly (static shapes, no data-dependent
 control flow), usable directly or inside shard_map.
@@ -19,7 +18,6 @@ control flow), usable directly or inside shard_map.
 from __future__ import annotations
 
 import math
-import os
 from functools import partial
 from typing import List, Optional, Tuple
 
@@ -28,25 +26,6 @@ import jax.numpy as jnp
 import numpy as np
 
 DEFAULT_CALL_CHUNK = 256 * 1024
-
-# Matmul precision for the likelihood/EM compute. Measured on TPU v5e
-# (benchmarks/exp_estep.py): HIGHEST (full f32 emulation) spends ~20 ms/EM
-# E-step in bf16-pass corrections that contend with the VPU log; HIGH
-# (bf16x3) is ~f32-accurate for these magnitudes at a fraction of the cost;
-# DEFAULT (single bf16 pass) visibly shifts posteriors and is NOT safe.
-_PRECISION_BY_NAME = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
-}
-_MATMUL_PRECISION_NAME = os.environ.get("DEMUX_MATMUL_PRECISION", "high").lower()
-if _MATMUL_PRECISION_NAME not in _PRECISION_BY_NAME:
-    raise ValueError(
-        f"DEMUX_MATMUL_PRECISION={_MATMUL_PRECISION_NAME!r} is not one of "
-        f"{sorted(_PRECISION_BY_NAME)}"
-    )
-MATMUL_PRECISION = _PRECISION_BY_NAME[_MATMUL_PRECISION_NAME]
-
 
 # ---------------------------------------------------------------------------
 # Host-side model setup (tiny, numpy)
@@ -125,19 +104,16 @@ def probs_from_betas(
     non-decreasing with at most that many variants per SNP — the layout
     :class:`ops.packing.VariantReindex` produces. The denominator then
     becomes a windowed sum of shifted rows: pure elementwise work instead of
-    a segment-sum scatter plus a gather, which dominate EM iterations at
-    SNP-array scale (655k variants: 17.5 ms → ~1 ms on v5e,
-    benchmarks/exp_em_decompose.py). 0 = no ordering assumption.
+    a segment-sum scatter plus a gather. 0 = no ordering assumption.
 
     (reference: demuxalot/demux.py:267-274)
     """
     if 0 < max_per_snp <= MAX_WINDOWED_RUN:
         n = betas.shape[0]
         # one fused elementwise expression: every shifted neighbor arrives
-        # as a full-width padded roll, masked by SNP-run membership. The
-        # .at[slice].add form this replaces compiled to per-shift
-        # dynamic-update-slices that XLA would not fuse (measured 1.5 ms of
-        # the EM chain at the bench shape vs ~0.3 ms for this form).
+        # as a full-width padded roll, masked by SNP-run membership (an
+        # .at[slice].add form compiles to per-shift dynamic-update-slices
+        # that XLA does not fuse)
         denom = betas
         for d in range(1, min(max_per_snp, max(n, 1))):
             run = variant2snp[d:] == variant2snp[:-d]
@@ -154,33 +130,25 @@ def probs_from_betas(
     return jnp.clip(probs, p_genotype_clip, 1 - p_genotype_clip)
 
 
-def probs_from_betas_donor_major(
-    betas_dm: jnp.ndarray,  # f32 [n_donors, n_variants]
-    variant2snp: jnp.ndarray,  # i32 [n_variants], non-decreasing
-    p_genotype_clip: float,
-    max_per_snp: int,
+def expand_pseudogenotypes(
+    genotype_prob: jnp.ndarray,  # f32 [n_variants, n_donors]
+    mixing: jnp.ndarray,  # f32 [n_donors, n_pseudogenotypes]
+    variant_id: jnp.ndarray,  # i32 [n_calls]
 ) -> jnp.ndarray:
-    """Windowed :func:`probs_from_betas` on the donor-major [D, V] layout.
+    """Per-call pseudo-genotype probabilities [n_calls, n_pseudogenotypes].
 
-    The production EM loops keep the whole genotype state donor-major — the
-    layout the E-step gather consumes and the M-step kernel produces — so
-    the per-iteration normalization runs without any full-table transpose.
-    Requires the SNP-sorted variant order (``ops.packing.VariantReindex``).
+    Every column of :func:`pseudogenotype_mixing` is a singlet (one 1) or a
+    donor pair (two ½), so ``genotype_prob[vid] @ mixing`` is computed
+    exactly as (p_i + p_j) / 2 over each column's two donor indices (i = j
+    for a singlet) — elementwise f32, no matrix unit and therefore no
+    reduced-precision (TF32/bf16) pass. Equal bit for bit to the f32 product.
     """
-    assert 0 < max_per_snp <= MAX_WINDOWED_RUN, "donor-major path needs SNP-sorted variants"
-    n = betas_dm.shape[1]
-    # fused padded-shift form; see probs_from_betas for why not .at[].add
-    denom = betas_dm
-    for d in range(1, min(max_per_snp, max(n, 1))):
-        run = variant2snp[d:] == variant2snp[:-d]
-        same = jnp.pad(run, (0, d))[None, :]
-        fwd = jnp.pad(betas_dm[:, d:], ((0, 0), (0, d)))
-        denom = denom + jnp.where(same, fwd, 0.0)
-        same_b = jnp.pad(run, (d, 0))[None, :]
-        bwd = jnp.pad(betas_dm[:, :-d], ((0, 0), (d, 0)))
-        denom = denom + jnp.where(same_b, bwd, 0.0)
-    probs = betas_dm / jnp.clip(denom, min=1e-7)
-    return jnp.clip(probs, p_genotype_clip, 1 - p_genotype_clip)
+    n_donors = mixing.shape[0]
+    nonzero = mixing != 0
+    ii = jnp.argmax(nonzero, axis=0)
+    jj = n_donors - 1 - jnp.argmax(nonzero[::-1], axis=0)
+    rows = variant_id[:, None]
+    return (genotype_prob[rows, ii[None, :]] + genotype_prob[rows, jj[None, :]]) * 0.5
 
 
 def _pad_chunks(n: int, chunk: int) -> int:
@@ -245,12 +213,7 @@ def barcode_logits(
 
 
 def _chunk_contribution(genotype_prob, mixing, variant_id, cb, q, n_barcodes):
-    gathered = genotype_prob[variant_id]  # [c, donors]
-    # precision >= HIGH: single-pass bf16 rounding visibly shifts the logits
-    p = jnp.dot(
-        gathered, mixing, preferred_element_type=jnp.float32,
-        precision=MATMUL_PRECISION,
-    )  # [c, pg]
+    p = expand_pseudogenotypes(genotype_prob, mixing, variant_id)  # [c, pg]
     vals = jnp.log(p * (1.0 - q)[:, None] + jnp.clip(q, min=1e-4)[:, None])
     return jax.ops.segment_sum(vals, cb, num_segments=n_barcodes, indices_are_sorted=True)
 
@@ -282,10 +245,7 @@ def snp_aggregated_logits(
     n_pg = mixing.shape[1]
 
     def chunk_group_sums(vid_c, q_c, grp_c):
-        p = jnp.dot(
-            genotype_prob[vid_c], mixing, preferred_element_type=jnp.float32,
-            precision=MATMUL_PRECISION,
-        )
+        p = expand_pseudogenotypes(genotype_prob, mixing, vid_c)
         vals = jnp.log(p + q_c[:, None])
         return jax.ops.segment_sum(vals, grp_c, num_segments=n_groups, indices_are_sorted=True)
 

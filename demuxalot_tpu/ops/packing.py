@@ -1,6 +1,6 @@
 """Host-side packing: compressed SNP calls → dense device-ready arrays.
 
-This is the boundary between the CPU ingest frontend and the TPU compute
+This is the boundary between the CPU ingest frontend and the device compute
 path. It joins molecule calls against genotype variants, collapses them to
 unique (variant, barcode) rows, applies the beta regularization priors, and
 lays the result out as flat int32/float32 arrays — padded to static shapes
@@ -446,15 +446,10 @@ def device_pack_barcode_calls(
     n_shards: int = 1,
     pad_multiple: int = 1024,
     barcodes_per_shard: Optional[int] = None,
-    build_arrays: bool = True,
     shard_ids: Optional[list] = None,
     per_shard_calls_floor: int = 0,
 ) -> DeviceCalls:
     """Lay out collapsed barcode calls for the device kernels.
-
-    ``build_arrays=False`` returns only the sharding metadata (callers on
-    the Pallas path need the per-shard barcode geometry but not the flat
-    XLA layout, which would be dead weight in HBM).
 
     ``shard_ids`` restricts array building to a subset of shards (arrays
     get one row block per listed shard, in order) — the multi-host path,
@@ -466,15 +461,14 @@ def device_pack_barcode_calls(
     cb = barcode_calls["compressed_cb"].astype(np.int32)
     q = barcode_calls["p_base_wrong"].astype(np.float32)
 
-    if build_arrays and len(cb):
+    if len(cb):
         # fused native key sort carrying vid/q as payload (bit-identical to
         # stable_argsort + three gathers, ~3x cheaper at product scale)
         cb, vid, q = sort_calls_by_cb(cb, vid, q)
     return device_pack_columns(
         cb, vid, q, n_barcodes,
         n_shards=n_shards, pad_multiple=pad_multiple,
-        barcodes_per_shard=barcodes_per_shard, build_arrays=build_arrays,
-        shard_ids=shard_ids, per_shard_calls_floor=per_shard_calls_floor,
+        barcodes_per_shard=barcodes_per_shard, shard_ids=shard_ids, per_shard_calls_floor=per_shard_calls_floor,
     )
 
 
@@ -486,7 +480,6 @@ def device_pack_columns(
     n_shards: int = 1,
     pad_multiple: int = 1024,
     barcodes_per_shard: Optional[int] = None,
-    build_arrays: bool = True,
     shard_ids: Optional[list] = None,
     per_shard_calls_floor: int = 0,
 ) -> DeviceCalls:
@@ -497,18 +490,6 @@ def device_pack_columns(
     assert per_shard_b * n_shards >= n_barcodes
     if shard_ids is None:
         shard_ids = list(range(n_shards))
-
-    if not build_arrays:
-        empty_i = np.empty(0, np.int32)
-        empty_f = np.empty(0, np.float32)
-        return DeviceCalls(
-            cb_b=empty_i, vid_b=empty_i, q_b=empty_f,
-            cb_v=empty_i, vid_v=empty_i, q_v=empty_f,
-            n_barcodes=n_barcodes,
-            n_barcodes_per_shard=per_shard_b,
-            per_shard_calls=0,
-            n_shards=n_shards,
-        )
 
     cb = cb_sorted
     shard_of_call = cb_sorted // per_shard_b

@@ -3,8 +3,8 @@
 The demultiplexing workload is data-parallel over barcodes: call tables and
 logits shard on the barcode axis, genotype beta tables replicate, and EM
 M-step partials merge with one psum per iteration. A 1-D mesh over all
-devices is the right shape at any scale (chips on ICI, hosts via
-jax.distributed over DCN).
+devices is the right shape at any scale (cards on NVLink, hosts via
+jax.distributed over the network).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def init_distributed(**kwargs) -> None:
     """Initialize multi-host execution (wraps jax.distributed.initialize).
 
     Call once per host process before any computation when running on a
-    multi-host pod slice; single-host usage needs nothing.
+    multi-host cluster; single-host usage needs nothing.
     """
     jax.distributed.initialize(**kwargs)
 
@@ -73,7 +73,7 @@ def put_row_shards(local_blocks: dict, sharding: NamedSharding, global_shape: tu
     ``local_blocks`` maps mesh-axis position -> that shard's rows; a process
     only supplies (and only ever materializes) the blocks for shards its
     own devices hold, so peak host memory is the local share of the data —
-    the property that lets pod-scale runs load barcode ranges host-locally.
+    the property that lets multi-host runs load barcode ranges host-locally.
     """
     mesh = sharding.mesh
     devices = list(mesh.devices.flat)

@@ -5,15 +5,15 @@ its slice of the posterior. Genotype tables (betas, variant→snp, mixing)
 are replicated. Per EM iteration the only cross-device traffic is a psum of
 the [n_variants, n_donors] M-step partials — the reference's driver-side
 reduction of per-worker results (demuxalot/snp_counter.py:317-325,
-demux.py:113-118) recast as an XLA collective over ICI/DCN.
+demux.py:113-118) recast as an XLA collective (NCCL between GPUs).
 
-The same code path runs on a single device (mesh of one), a multi-chip host,
-or a multi-host slice (after ``parallel.mesh.init_distributed``).
+The same code path runs on a single device (mesh of one), a multi-GPU host,
+or several hosts (after ``parallel.mesh.init_distributed``).
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +22,7 @@ import pandas as pd
 from jax.sharding import Mesh, PartitionSpec as PSpec
 from jax import shard_map
 
+from ..ops import estep_kernel as K
 from ..ops import likelihood as L
 from ..ops import packing as P
 from .mesh import (
@@ -65,46 +66,22 @@ def _build_estep(mesh, n_snps, n_local_barcodes, p_genotype_clip, call_chunk,
     )
 
 
-def _build_estep_pallas(
-    mesh, n_snps, p_genotype_clip, sharded_tiled, pg, max_per_snp=0,
-    donor_major=False, with_probs=True,
-):
-    """E-step with the fused Pallas kernel running per shard.
-
-    ``donor_major=True`` takes betas/addition as [D, V] — the orientation
-    the M-step kernel natively emits — so the EM loop runs transpose-free
-    (parity with the single-device engine's donor-major state,
-    models/demux.py). ``with_probs=False`` skips the device softmax for
-    consumers that only need logits (the compact top-k path).
-    """
-    from ..ops.pallas_likelihood import tiled_logits_impl
-
+def _build_estep_kernel(mesh, n_snps, n_local_barcodes, p_genotype_clip, doublets,
+                       interpret, max_per_snp=0, with_probs=True):
+    """E-step with the fused kernel (``ops.estep_kernel``) running per shard."""
     rep = PSpec()
     shd = PSpec(BARCODE_AXIS)
     out_row = PSpec(BARCODE_AXIS, None)
-    st = sharded_tiled
-    interpret = jax.default_backend() != "tpu"
 
-    def estep(betas, addition, variant2snp, mixing_sl, penalties_p,
-              vid, seg_group, q, bounds, suboff):
-        total = betas + addition
-        if donor_major:
-            genotype_prob = L.probs_from_betas_donor_major(
-                total, variant2snp, p_genotype_clip, max_per_snp
-            )
-        else:
-            genotype_prob = L.probs_from_betas(
-                total, variant2snp, n_snps, p_genotype_clip, max_per_snp=max_per_snp
-            )
-        out = tiled_logits_impl(
-            genotype_prob, mixing_sl, penalties_p,
-            vid[0], seg_group[0], q[0], bounds[0], suboff[0],
-            n_super=st.n_super, tbs=st.tbs, tb=st.tile_barcodes, tc=st.chunk_calls,
-            band_specs=st.band_specs,
-            interpret=interpret,
-            donor_major=donor_major,
+    def estep(betas, addition, variant2snp, penalties, offsets, vid, q):
+        genotype_prob = L.probs_from_betas(
+            betas + addition, variant2snp, n_snps, p_genotype_clip,
+            max_per_snp=max_per_snp,
         )
-        logits = out[: st.n_barcodes_per_shard, :pg]
+        logits = K.estep_logits(
+            genotype_prob, penalties, offsets[0], vid[0], q[0],
+            n_barcodes=n_local_barcodes, doublets=doublets, interpret=interpret,
+        )
         if not with_probs:
             return logits
         return logits, jax.nn.softmax(logits, axis=-1)
@@ -112,7 +89,7 @@ def _build_estep_pallas(
     return shard_map(
         estep,
         mesh=mesh,
-        in_specs=(rep, rep, rep, rep, rep, shd, shd, shd, shd, shd),
+        in_specs=(rep, rep, rep, rep, shd, shd, shd),
         out_specs=(out_row, out_row) if with_probs else out_row,
         check_vma=False,  # pallas_call outputs carry no vma annotation
     )
@@ -136,38 +113,6 @@ def _build_mstep(mesh, n_variants, n_genotypes, contribution_power, call_chunk):
         in_specs=(PSpec(BARCODE_AXIS, None), rep, shd, shd, shd),
         out_specs=rep,
         check_vma=False,  # chunked-scan carries mix varying/replicated values
-    )
-
-
-def _build_mstep_pallas(
-    mesh, layout, n_variants, n_genotypes, contribution_power,
-    donor_major_out=False,
-):
-    """M-step with the fused Pallas kernel running per shard, psum-merged."""
-    from ..ops.pallas_mstep import tiled_mstep_impl
-
-    rep = PSpec()
-    shd = PSpec(BARCODE_AXIS)
-    interpret = jax.default_backend() != "tpu"
-
-    def mstep(posterior, anchor, cb_global, vl, q, bounds, suboff):
-        partial_addition = tiled_mstep_impl(
-            posterior, cb_global[0], vl[0], q[0], bounds[0], suboff[0],
-            n_variants=n_variants, n_genotypes=n_genotypes,
-            tv=layout.tile_variants, tc=layout.chunk_calls,
-            sps=layout.subtiles_per_super,
-            contribution_power=contribution_power,
-            interpret=interpret,
-            donor_major_out=donor_major_out,
-        )
-        return jax.lax.psum(partial_addition, BARCODE_AXIS) * anchor
-
-    return shard_map(
-        mstep,
-        mesh=mesh,
-        in_specs=(PSpec(BARCODE_AXIS, None), rep, shd, shd, shd, shd, shd),
-        out_specs=rep,
-        check_vma=False,  # pallas_call outputs carry no vma annotation
     )
 
 
@@ -199,19 +144,14 @@ class ShardedDemultiplexer:
 
     contribution_power = 2.0
     call_chunk = L.DEFAULT_CALL_CHUNK
-    use_pallas: Optional[bool] = None  # None = auto (on TPU backends)
-    # E-step tiles: (64, 1024) measured best on v5e (benchmarks/exp_group.py)
-    pallas_tile_barcodes = 64
-    pallas_chunk_calls = 1024
-    # M-step chunk: variants average fewer calls per segment than barcodes,
-    # so the smaller chunk keeps group padding modest
-    mstep_chunk_calls = 512
+    # fused E-step kernel per shard; same values as Demultiplexer.use_pallas
+    use_pallas: Union[None, bool, str] = None
 
     def __init__(self, mesh: Optional[Mesh] = None):
         self.mesh = mesh if mesh is not None else make_mesh()
         # shard-layout cache accounting (layouts themselves live on the
         # PackedCalls dataset; see _shard_inputs): predict-after-learn on
-        # the same dataset must re-tile nothing — tests assert via these
+        # the same dataset must re-lay out nothing — tests assert via these
         self.layout_cache_hits = 0
         self.layout_cache_misses = 0
 
@@ -238,16 +178,11 @@ class ShardedDemultiplexer:
 
         return ensure_packed(chromosome2compressed_snp_calls, genotypes)
 
-    def _resolve_use_pallas(self) -> bool:
-        flag = self.use_pallas
-        if flag is None:
-            return jax.default_backend() == "tpu"
-        return bool(flag)
-
     # -- data placement ----------------------------------------------------
     def _barcodes_per_shard(self, n_barcodes: int) -> int:
-        tb = self.pallas_tile_barcodes
-        return -(-max(n_barcodes, self.n_shards) // (self.n_shards * tb)) * tb
+        # whole kernel tiles per shard, so shard-local runs need no padding
+        tile = K.TILE_ROWS
+        return -(-max(n_barcodes, self.n_shards) // (self.n_shards * tile)) * tile
 
     def _local_shard_ids(self) -> list:
         """Mesh positions this process's devices hold (all, when single-process)."""
@@ -271,38 +206,31 @@ class ShardedDemultiplexer:
 
         return put_flat, put_stacked
 
-    def _shard_inputs(self, packed, n_barcodes, n_donors, n_variants, build_mstep):
+    def _shard_inputs(self, packed, n_barcodes, build_mstep):
         """Per-shard device layouts, cached on the PackedCalls dataset.
 
         The expensive pieces — the barcode-range split, the per-shard
-        tiling, and the device upload of the stacked call tables — depend
-        only on (calls, n_barcodes, mesh, tiling knobs, n_variants,
-        n_donors). The E-step tiling is sized at the donor count's max
-        pseudo-genotype width (``padded_pg``), exactly like the
-        single-device ``PackedCalls.forward_layout``, so
-        learn(doublet_prior=0) and predict(0.35) share ONE entry;
+        layout, and the device upload of the call tables — depend only on
+        (calls, n_barcodes, mesh, E-step path), never on the doublet prior,
+        so learn(doublet_prior=0) and predict(0.35) share ONE E-step entry;
         mixing/penalty tables are cheap per-use uploads done in
-        ``_make_estep``. E-step and M-step entries cache independently, so
-        ``predict_posteriors`` after ``learn_genotypes`` re-tiles nothing.
+        ``_make_estep``. The E-step entry holds the barcode-ordered calls
+        (XLA) or the shard-local call runs (kernel); the M-step entry the
+        variant-ordered calls. They cache independently, so
+        ``predict_posteriors`` after ``learn_genotypes`` re-lays out nothing.
 
-        Multi-host safe and host-memory local exactly as before: each
-        process keeps only the calls of its own barcode ranges, lays out
-        only its own shards, and agrees on padded static dims through
-        allgathered maxima.
+        Multi-host safe and host-memory local: each process keeps only the
+        calls of its own barcode ranges, lays out only its own shards, and
+        agrees on padded static dims through allgathered maxima.
         """
         per_shard = self._barcodes_per_shard(n_barcodes)
-        use_pallas = self._resolve_use_pallas()
+        use_kernel, _interpret = K.resolve_use_pallas(self.use_pallas)
         my_shards = self._local_shard_ids()
-        multi = jax.process_count() > 1
         mesh_key = self._mesh_key()
         cache = packed._sharded_layouts
 
-        key_e = ("estep", mesh_key, n_barcodes, per_shard, use_pallas,
-                 self.pallas_tile_barcodes, self.pallas_chunk_calls,
-                 n_variants, n_donors)
-        key_m = ("mstep", mesh_key, n_barcodes, per_shard, use_pallas,
-                 self.mstep_chunk_calls, n_variants, n_donors)
-
+        key_e = ("estep", mesh_key, n_barcodes, per_shard, use_kernel)
+        key_m = ("mstep", mesh_key, n_barcodes, per_shard)
         entry_e = cache.get(key_e)
         entry_m = cache.get(key_m) if build_mstep else None
         if entry_e is not None:
@@ -316,7 +244,7 @@ class ShardedDemultiplexer:
         cb_s, vid_s, q_s = packed.calls_by_barcode()
         shard_starts = np.arange(self.n_shards + 1, dtype=np.int64) * per_shard
         bounds = np.searchsorted(cb_s, shard_starts)
-        if multi:
+        if jax.process_count() > 1:
             # keep only the rows this process's shards own (contiguous
             # barcode-major runs, concatenated in ascending shard order so
             # the result stays globally cb-sorted)
@@ -330,172 +258,65 @@ class ShardedDemultiplexer:
         counts = bounds[1:] - bounds[:-1]
         local_max_calls = int(counts[my_shards].max()) if len(my_shards) else 0
         (max_calls_per_shard,) = allreduce_max_dims([local_max_calls])
+        device = P.device_pack_columns(
+            cb_s, vid_s, q_s, n_barcodes, n_shards=self.n_shards,
+            barcodes_per_shard=per_shard, shard_ids=my_shards,
+            per_shard_calls_floor=max_calls_per_shard,
+        )
         put_flat, put_stacked = self._put_helpers(my_shards)
+        w = device.per_shard_calls
 
         if entry_e is None:
             self.layout_cache_misses += 1
-            entry_e = self._build_estep_entry(
-                cb_s, vid_s, q_s, n_barcodes, per_shard, my_shards, multi,
-                max_calls_per_shard, use_pallas, n_variants, n_donors,
-                put_flat, put_stacked,
-            )
+            entry_e = {"device": device, "estep_fns": {}}
+            if use_kernel:
+                entry_e["runs"] = self._kernel_runs(
+                    device, counts[my_shards], put_stacked
+                )
+            else:
+                entry_e.update(
+                    vid_b=put_flat(device.vid_b, w), cb_b=put_flat(device.cb_b, w),
+                    q_b=put_flat(device.q_b, w),
+                )
             cache[key_e] = entry_e
         if build_mstep and entry_m is None:
             self.layout_cache_misses += 1
-            entry_m = self._build_mstep_entry(
-                cb_s, vid_s, q_s, per_shard, my_shards, multi,
-                max_calls_per_shard, use_pallas, n_variants, n_donors,
-                put_stacked,
-            )
+            entry_m = {
+                "mstep_fns": {},
+                "vid_v": put_flat(device.vid_v, w), "cb_v": put_flat(device.cb_v, w),
+                "q_v": put_flat(device.q_v, w),
+            }
             cache[key_m] = entry_m
         return entry_e, entry_m
 
-    def _build_estep_entry(
-        self, cb_s, vid_s, q_s, n_barcodes, per_shard, my_shards, multi,
-        max_calls_per_shard, use_pallas, n_variants, n_donors,
-        put_flat, put_stacked,
-    ):
-        device = P.device_pack_columns(
-            cb_s, vid_s, q_s, n_barcodes, n_shards=self.n_shards,
-            barcodes_per_shard=per_shard, build_arrays=not use_pallas,
-            shard_ids=my_shards, per_shard_calls_floor=max_calls_per_shard,
-        )
-        entry = {"device": device, "tiled": None, "estep_fns": {}}
-        if not use_pallas:
-            # flat dual-sort layout feeds the XLA segment-sum paths (the
-            # _v arrays serve the XLA M-step; same pack builds them)
-            w = device.per_shard_calls
-            entry.update(
-                vid_b=put_flat(device.vid_b, w), cb_b=put_flat(device.cb_b, w),
-                q_b=put_flat(device.q_b, w),
-                vid_v=put_flat(device.vid_v, w), cb_v=put_flat(device.cb_v, w),
-                q_v=put_flat(device.q_v, w),
-            )
-            return entry
+    @staticmethod
+    def _kernel_runs(device, local_counts, put_stacked) -> tuple:
+        """Shard-local E-step kernel runs, stacked [n_shards, ...] on the mesh.
 
-        from ..ops.pallas_likelihood import padded_pg
-        from ..ops.tiling import (
-            banded_chunk_counts,
-            cap_bands_to_grid,
-            choose_banded_chunk_calls,
-            choose_n_bands,
-            chunk_group,
-            tile_barcode_calls_sharded,
+        ``local_counts[i]`` is the number of real calls in this process's
+        i-th shard block; every block is padded to the agreed length, so the
+        stacked arrays share one shape on every process.
+        """
+        w = device.per_shard_calls
+        cb_b, vid_b, q_b = (x.reshape(len(local_counts), w)
+                            for x in (device.cb_b, device.vid_b, device.q_b))
+        runs = []
+        for block, n_real in enumerate(local_counts):
+            runs.append(K.CallRuns.build(
+                cb_b[block, :n_real], vid_b[block, :n_real], q_b[block, :n_real],
+                device.n_barcodes_per_shard, n_calls_padded=w,
+            ))
+        return tuple(
+            put_stacked(np.stack([getattr(r, name) for r in runs]))
+            for name in ("offsets", "vid", "q")
         )
-
-        # sized at the donor count's max pseudo-genotype width so every
-        # doublet prior shares this tiling (padding columns are no-ops)
-        pgp_max = padded_pg(n_donors + n_donors * (n_donors - 1) // 2)
-        chunk_floor = -(-max(max_calls_per_shard, 1) // self.pallas_chunk_calls)
-        n_tiles_per_shard = per_shard // self.pallas_tile_barcodes
-        n_bands = choose_n_bands(n_variants, n_donors) if n_variants else 1
-        # deterministic across processes: derived only from agreed dims
-        n_bands = cap_bands_to_grid(
-            n_bands, n_tiles_per_shard, self.pallas_tile_barcodes, pgp_max
-        )
-        tc = self.pallas_chunk_calls
-        band_floors = None
-        if n_bands > 1:
-            # chunk size and per-band widths derive from allgathered
-            # values so every process builds identical static shapes
-            tc = choose_banded_chunk_calls(
-                max_calls_per_shard, n_tiles_per_shard, n_bands,
-                self.pallas_chunk_calls, seg_rows=self.pallas_tile_barcodes,
-            )
-            if multi:
-                local_counts = banded_chunk_counts(
-                    cb_s, vid_s, per_shard, n_variants,
-                    self.n_shards, n_bands, self.pallas_tile_barcodes, tc,
-                )
-                band_floors = allreduce_max_dims(
-                    local_counts[my_shards].max(axis=0).tolist()
-                )
-        tiled = tile_barcode_calls_sharded(
-            cb_s, vid_s, q_s, n_barcodes,
-            n_shards=self.n_shards,
-            tile_barcodes=self.pallas_tile_barcodes,
-            chunk_calls=tc,
-            pgp=pgp_max,
-            barcodes_per_shard=per_shard,
-            shard_ids=my_shards,
-            # multi-host: consistent upper bounds (each tile can round
-            # one chunk up, plus per-barcode group padding of up to
-            # TB*(G-1) slots per tile) replace the cross-shard max no
-            # single process can see; single-host keeps the exact max
-            n_chunks_floor=(
-                chunk_floor
-                + n_tiles_per_shard
-                * (1 + (self.pallas_tile_barcodes * (chunk_group(tc) - 1) + tc - 1) // tc)
-                if multi else 0
-            ),
-            n_variants=n_variants or 0,
-            n_bands=n_bands,
-            band_width_floors=band_floors,
-        )
-        entry["tiled"] = tiled
-        entry.update(
-            pallas_vid=put_stacked(tiled.vid),
-            pallas_cbl=put_stacked(tiled.seg_group),
-            pallas_q=put_stacked(tiled.q),
-            pallas_bounds=put_stacked(tiled.chunk_bounds),
-            pallas_suboff=put_stacked(tiled.chunk_suboff),
-        )
-        return entry
-
-    def _build_mstep_entry(
-        self, cb_s, vid_s, q_s, per_shard, my_shards, multi,
-        max_calls_per_shard, use_pallas, n_variants, n_donors, put_stacked,
-    ):
-        if not use_pallas:
-            # XLA M-step reads the _v arrays of the E-step entry
-            return {"layout": None, "mstep_fns": {}}
-
-        from ..ops.pallas_mstep import ShardedMstepLayout, choose_tile_variants
-        from ..ops.tiling import chunk_group
-
-        mstep_chunk_floor = -(-max(max_calls_per_shard, 1) // self.mstep_chunk_calls)
-        shard_of_call = cb_s // per_shard
-        tv = choose_tile_variants(
-            max_calls_per_shard, n_variants, chunk_calls=self.mstep_chunk_calls
-        )
-        mlayout = ShardedMstepLayout(
-            cb_local=(cb_s - shard_of_call * per_shard).astype(np.int32),
-            vid=vid_s,
-            q=q_s,
-            shard_of_call=shard_of_call,
-            n_shards=self.n_shards,
-            n_variants=n_variants,
-            tile_variants=tv,
-            chunk_calls=self.mstep_chunk_calls,
-            shard_ids=my_shards,
-            # see the E-step layout note: agreed upper bound (tile
-            # rounding + per-variant group padding), multi-host only
-            n_chunks_floor=(
-                mstep_chunk_floor
-                + -(-n_variants // tv)
-                * (1 + (tv * (chunk_group(self.mstep_chunk_calls) - 1)
-                        + self.mstep_chunk_calls - 1) // self.mstep_chunk_calls)
-                if multi else 0
-            ),
-            n_genotypes=n_donors,
-            n_barcodes_per_shard=per_shard,
-        )
-        return {
-            "layout": mlayout,
-            "mstep_fns": {},
-            "mstep_cb": put_stacked(mlayout.cb_global),
-            "mstep_vl": put_stacked(mlayout.vl),
-            "mstep_q": put_stacked(mlayout.q),
-            "mstep_bounds": put_stacked(mlayout.chunk_bounds),
-            "mstep_suboff": put_stacked(mlayout.chunk_suboff),
-        }
 
     def _replicate(self, *xs):
         rep = jax.sharding.NamedSharding(self.mesh, PSpec())
         return [put_global(np.asarray(x), rep) for x in xs]
 
     def _make_estep(self, entry, mixing, penalties, n_snps, p_genotype_clip,
-                    max_per_snp=0, donor_major=False, with_probs=True):
+                    max_per_snp=0, with_probs=True):
         """Jitted E-step + its trailing args for one (mixing, penalties) use.
 
         The returned callable takes ``(betas, addition, variant2snp, *args)``
@@ -504,83 +325,49 @@ class ShardedDemultiplexer:
         entry-point call would force a recompile every time); the
         mixing/penalty uploads are per-use and tiny.
         """
-        pg = mixing.shape[1]
-        tiled = entry["tiled"]
-        if tiled is not None:
-            from ..ops.pallas_likelihood import build_mixing_sl, padded_pg
-
-            fn_key = ("pallas", n_snps, float(p_genotype_clip), pg,
-                      max_per_snp, donor_major, with_probs)
+        per_shard = entry["device"].n_barcodes_per_shard
+        if "runs" in entry:
+            _use, interpret = K.resolve_use_pallas(self.use_pallas)
+            doublets = K.check_mixing(mixing)
+            fn_key = ("kernel", n_snps, float(p_genotype_clip), doublets,
+                      max_per_snp, with_probs, interpret)
             estep = entry["estep_fns"].get(fn_key)
             if estep is None:
-                estep = jax.jit(
-                    _build_estep_pallas(
-                        self.mesh, n_snps, p_genotype_clip, tiled, pg,
-                        max_per_snp=max_per_snp, donor_major=donor_major,
-                        with_probs=with_probs,
-                    )
-                )
+                estep = jax.jit(_build_estep_kernel(
+                    self.mesh, n_snps, per_shard, p_genotype_clip, doublets,
+                    interpret, max_per_snp=max_per_snp, with_probs=with_probs,
+                ))
                 entry["estep_fns"][fn_key] = estep
-            pgp = padded_pg(pg)
-            penalties_p = np.zeros((1, pgp), dtype=np.float32)
-            penalties_p[0, :pg] = penalties
-            mix_r, pen_r = self._replicate(build_mixing_sl(mixing), penalties_p)
-            args = (
-                mix_r, pen_r,
-                entry["pallas_vid"], entry["pallas_cbl"], entry["pallas_q"],
-                entry["pallas_bounds"], entry["pallas_suboff"],
+            (pen_r,) = self._replicate(penalties)
+            return estep, (pen_r, *entry["runs"])
+        fn_key = ("xla", n_snps, float(p_genotype_clip), max_per_snp,
+                  int(self.call_chunk), with_probs)
+        estep = entry["estep_fns"].get(fn_key)
+        if estep is None:
+            estep = jax.jit(
+                _build_estep(
+                    self.mesh, n_snps, per_shard, p_genotype_clip, self.call_chunk,
+                    max_per_snp=max_per_snp, with_probs=with_probs,
+                )
             )
-        else:
-            fn_key = ("xla", n_snps, float(p_genotype_clip), max_per_snp,
-                      int(self.call_chunk), with_probs)
-            estep = entry["estep_fns"].get(fn_key)
-            if estep is None:
-                estep = jax.jit(
-                    _build_estep(
-                        self.mesh, n_snps, entry["device"].n_barcodes_per_shard,
-                        p_genotype_clip, self.call_chunk, max_per_snp=max_per_snp,
-                        with_probs=with_probs,
-                    )
-                )
-                entry["estep_fns"][fn_key] = estep
-            mix_r, pen_r = self._replicate(mixing, penalties)
-            args = (mix_r, pen_r, entry["vid_b"], entry["cb_b"], entry["q_b"])
-        return estep, args
+            entry["estep_fns"][fn_key] = estep
+        mix_r, pen_r = self._replicate(mixing, penalties)
+        return estep, (mix_r, pen_r, entry["vid_b"], entry["cb_b"], entry["q_b"])
 
-    def _make_mstep(self, entry_e, entry_m, n_variants, n_genotypes,
-                    donor_major=False):
+    def _make_mstep(self, entry_m, n_variants, n_genotypes):
         """Jitted M-step + trailing args; takes (posterior, anchor, *args)."""
-        mlayout = entry_m["layout"]
-        if mlayout is not None:
-            fn_key = ("pallas", n_variants, n_genotypes,
-                      float(self.contribution_power), donor_major)
-            mstep = entry_m["mstep_fns"].get(fn_key)
-            if mstep is None:
-                mstep = jax.jit(
-                    _build_mstep_pallas(
-                        self.mesh, mlayout, n_variants, n_genotypes,
-                        float(self.contribution_power), donor_major_out=donor_major,
-                    )
+        fn_key = (n_variants, n_genotypes, float(self.contribution_power),
+                  int(self.call_chunk))
+        mstep = entry_m["mstep_fns"].get(fn_key)
+        if mstep is None:
+            mstep = jax.jit(
+                _build_mstep(
+                    self.mesh, n_variants, n_genotypes,
+                    float(self.contribution_power), self.call_chunk,
                 )
-                entry_m["mstep_fns"][fn_key] = mstep
-            args = (
-                entry_m["mstep_cb"], entry_m["mstep_vl"], entry_m["mstep_q"],
-                entry_m["mstep_bounds"], entry_m["mstep_suboff"],
             )
-        else:
-            fn_key = ("xla", n_variants, n_genotypes,
-                      float(self.contribution_power), int(self.call_chunk))
-            mstep = entry_m["mstep_fns"].get(fn_key)
-            if mstep is None:
-                mstep = jax.jit(
-                    _build_mstep(
-                        self.mesh, n_variants, n_genotypes,
-                        float(self.contribution_power), self.call_chunk,
-                    )
-                )
-                entry_m["mstep_fns"][fn_key] = mstep
-            args = (entry_e["vid_v"], entry_e["cb_v"], entry_e["q_v"])
-        return mstep, args
+            entry_m["mstep_fns"][fn_key] = mstep
+        return mstep, (entry_m["vid_v"], entry_m["cb_v"], entry_m["q_v"])
 
     # -- public API --------------------------------------------------------
     def _forward_sharded(
@@ -611,10 +398,7 @@ class ShardedDemultiplexer:
         prior_betas_sorted = reindex.permute_rows(prior_betas)
         t_mark = _dm._stage_mark(timings, "pack_s", t_mark)
 
-        entry_e, _ = self._shard_inputs(
-            packed, n_barcodes, genotypes.n_genotypes, n_variants,
-            build_mstep=False,
-        )
+        entry_e, _ = self._shard_inputs(packed, n_barcodes, build_mstep=False)
         betas_r, v2s_r, zero_r = self._replicate(
             prior_betas_sorted, reindex.variant2snp, np.float32(0.0)
         )
@@ -652,9 +436,6 @@ class ShardedDemultiplexer:
         n_barcodes = barcode_handler.n_barcodes
         t_mark = time.perf_counter()
         if getattr(logits, "is_fully_addressable", True):
-            # link-adaptive: one frame + host softmax over slow links, both
-            # device frames otherwise — same policy as the single-device
-            # engine (_materialize_logits_and_probs)
             logits_np, probs_np = _dm._materialize_logits_and_probs(logits, probs)
             logits, probs = logits_np[:n_barcodes], probs_np[:n_barcodes]
         else:
@@ -689,9 +470,8 @@ class ShardedDemultiplexer:
 
         Sharded twin of ``Demultiplexer.predict_posteriors_compact`` (same
         exactness contract; see models/demux.py). top-k is per-row, so the
-        reduction runs shard-local with zero collectives; at pod scale the
-        per-host d2h drops from 4*n_pg to ~(8k+4) bytes per barcode — the
-        difference between seconds and minutes of DCN per posterior frame.
+        reduction runs shard-local with zero collectives; on a multi-host
+        mesh the per-host d2h drops from 4*n_pg to ~(8k+4) bytes per barcode.
         """
         from ..models import demux as _dm
 
@@ -759,34 +539,15 @@ class ShardedDemultiplexer:
         prior_betas_sorted = reindex.permute_rows(prior_betas)
         t_mark = _dm._stage_mark(timings, "pack_s", t_mark)
 
-        entry_e, entry_m = self._shard_inputs(
-            packed, n_barcodes, n_genotypes, n_variants, build_mstep=True
-        )
-        max_per_snp = reindex.windowed_max_per_snp
-        # with the Pallas kernels and the windowed denominator both
-        # available, the EM state stays donor-major [D, V] across
-        # iterations — the layout both kernels natively want (parity with
-        # the single-device engine, models/demux.py)
-        donor_major = (
-            entry_e["tiled"] is not None
-            and entry_m["layout"] is not None
-            and max_per_snp > 0
-        )
-        prior_state = (
-            np.ascontiguousarray(prior_betas_sorted.T) if donor_major
-            else prior_betas_sorted
-        )
+        entry_e, entry_m = self._shard_inputs(packed, n_barcodes, build_mstep=True)
         betas_r, v2s_r, addition_r = self._replicate(
-            prior_state, reindex.variant2snp, np.zeros_like(prior_state)
+            prior_betas_sorted, reindex.variant2snp, np.zeros_like(prior_betas_sorted)
         )
-
         estep, estep_args = self._make_estep(
             entry_e, mixing, penalties, n_snps, p_genotype_clip,
-            max_per_snp=max_per_snp, donor_major=donor_major,
+            max_per_snp=reindex.windowed_max_per_snp,
         )
-        mstep, mstep_args = self._make_mstep(
-            entry_e, entry_m, n_variants, n_genotypes, donor_major=donor_major
-        )
+        mstep, mstep_args = self._make_mstep(entry_m, n_variants, n_genotypes)
 
         prior_sharding = jax.sharding.NamedSharding(self.mesh, PSpec(BARCODE_AXIS, None))
         if barcode_prior_logits is not None:
@@ -802,9 +563,7 @@ class ShardedDemultiplexer:
                 np.asarray(genotypes.get_betas()).sum(axis=1) > 0
             ).astype(np.float32)
             device_mask = registry_mask[reindex.order]
-            anchor_r = self._replicate(
-                device_mask[None, :] if donor_major else device_mask[:, None]
-            )[0]
+            (anchor_r,) = self._replicate(device_mask[:, None])
         else:
             # scalar no-op; the multiply is folded into the M-step program
             anchor_r = self._replicate(np.float32(1.0))[0]
@@ -827,8 +586,6 @@ class ShardedDemultiplexer:
                     t_mark = _dm._stage_mark(timings, "device_loop_s", t_mark)
                 probs_np = to_host(probs_dev)[:n_barcodes]
                 addition_np = to_host(addition_r)
-                if donor_major:
-                    addition_np = addition_np.T
                 probs_df = pd.DataFrame(
                     probs_np, index=barcode_handler.ordered_barcodes, columns=column_names
                 )

@@ -9,7 +9,7 @@ from .encoding import (
 )
 from .files import as_str, download_file
 from .lookup import FeatureLookup
-from .profiling import Roofline, device_trace
+from .profiling import device_trace
 from .summary import compute_qualities, _compute_qualities, summarize_counted_SNPs
 from .timing import Timer
 
@@ -24,7 +24,6 @@ def read_vcf_to_header_and_pandas(vcf_filename):
 __all__ = [
     "BarcodeHandler",
     "FeatureLookup",
-    "Roofline",
     "Timer",
     "as_str",
     "base_lookup",

@@ -1,13 +1,13 @@
-"""Profiling helpers: device traces and kernel roofline estimates.
+"""Profiling helper: device traces.
 
 The reference's only tool was a wall-clock Timer (demuxalot/utils.py:134);
-on TPU the interesting signals are XLA/Pallas traces (view in TensorBoard
-or Perfetto) and how close each kernel runs to its bandwidth/compute bound.
+on an accelerator the interesting signal is the XLA/Pallas trace (view in
+TensorBoard or Perfetto). Peak rates for roofline shares live with the
+benchmark (``bench.py``).
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
-from dataclasses import dataclass
 
 
 @contextmanager
@@ -27,41 +27,3 @@ def device_trace(log_dir: str):
         yield
     finally:
         jax.profiler.stop_trace()
-
-
-@dataclass
-class Roofline:
-    """Speed-of-light estimate for the likelihood kernel on one chip.
-
-    The dominant term at production shapes is the **gather bound**: every
-    call must fetch its variant's genotype row, and the v5e gather engine
-    is index-count bound at ~2.6 ns/row regardless of row bytes (8-64 f32
-    columns), table dtype, table size (up to ~17 MB) or index ordering —
-    even fully ascending indices gather no faster (measured,
-    benchmarks/exp_gather probes, 4.19M rows in 10.6 ms). No implementation
-    of the likelihood accumulation can avoid paying this per-call fetch,
-    so it belongs in the denominator.
-    """
-
-    n_calls: int
-    n_donors: int
-    n_pseudogenotypes: int
-    hbm_bytes_per_s: float = 819e9  # TPU v5e
-    f32_flops_per_s: float = 98e12 / 2  # Precision.HIGHEST ~ 1/2-1/3 of bf16 peak
-    transcendental_per_s: float = 0.4e12  # VPU log throughput (approximate)
-    gather_rows_per_s: float = 4.0e8  # v5e gather engine, measured (index-bound)
-
-    def estimate_seconds(self) -> dict:
-        n, d, pg = self.n_calls, self.n_donors, self.n_pseudogenotypes
-        hbm_traffic = n * d * 4 * 2  # gathered probs written + read once
-        flops = n * pg * (2 * d + 2)  # expansion matmul + elementwise
-        logs = n * pg
-        return {
-            "hbm_bound_s": hbm_traffic / self.hbm_bytes_per_s,
-            "mxu_bound_s": flops / self.f32_flops_per_s,
-            "vpu_log_bound_s": logs / self.transcendental_per_s,
-            "gather_bound_s": n / self.gather_rows_per_s,
-        }
-
-    def speed_of_light_s(self) -> float:
-        return max(self.estimate_seconds().values())

@@ -1,7 +1,7 @@
 """Wall-clock stopwatch for examples and host-side benchmarks.
 
-Device kernels are profiled with ``jax.profiler`` / the Roofline helper in
-``utils.profiling``; this covers the host phases (BAM scanning, packing).
+Device kernels are profiled with ``jax.profiler`` (``utils.profiling``);
+this covers the host phases (BAM scanning, packing).
 Fills the role of the reference's timing helper (demuxalot/utils.py:134-144)
 with a reusable perf_counter-based design.
 """

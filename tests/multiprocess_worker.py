@@ -32,7 +32,7 @@ import numpy as np
 
 from demuxalot_tpu.ops import likelihood as L
 from demuxalot_tpu.parallel.mesh import make_mesh, to_host
-from demuxalot_tpu.parallel.sharded import ShardedDemultiplexer, _build_mstep
+from demuxalot_tpu.parallel.sharded import ShardedDemultiplexer
 from demuxalot_tpu.sim import synthesize_device_workload
 
 assert jax.device_count() == 8, jax.devices()
@@ -49,7 +49,7 @@ sh = ShardedDemultiplexer(make_mesh())  # global 8-device mesh
 
 # shard-local data path: this process hands over ONLY the rows of its own
 # barcode ranges — the full call table is never materialized here, which is
-# the property that keeps host memory flat at pod scale
+# the property that keeps host memory flat on multi-host meshes
 per_shard = sh._barcodes_per_shard(N_B)
 my_rows = np.isin(cb // per_shard, sh._local_shard_ids())
 assert 0 < my_rows.sum() < len(cb), "each process should hold a strict subset"
@@ -57,13 +57,13 @@ from demuxalot_tpu.parallel.sharded import ColumnDataset
 
 packed = ColumnDataset(cb[my_rows], vid[my_rows], q[my_rows])
 
-entry_e, _ = sh._shard_inputs(packed, N_B, n_genotypes, n_variants, build_mstep=False)
+entry_e, entry_m = sh._shard_inputs(packed, N_B, build_mstep=True)
 betas_r, v2s_r, zero_r, one_r = sh._replicate(betas, v2s, np.float32(0.0), np.float32(1.0))
 estep, eargs = sh._make_estep(entry_e, mixing, pen, N_S, 0.01)
-mstep = jax.jit(_build_mstep(sh.mesh, n_variants, n_genotypes, 2.0, sh.call_chunk))
+mstep, margs = sh._make_mstep(entry_m, n_variants, n_genotypes)
 
 logits, probs = estep(betas_r, zero_r, v2s_r, *eargs)
-addition = mstep(probs, one_r, entry_e["vid_v"], entry_e["cb_v"], entry_e["q_v"])
+addition = mstep(probs, one_r, *margs)
 
 logits_np = to_host(logits)[:N_B]
 addition_np = to_host(addition)

@@ -147,6 +147,25 @@ def test_multibam_rg_counting(tmp_path):
         assert base == (0 if cb == idx_a else 1)
 
 
+def test_counting_in_spawned_workers_matches_inline(tmp_path):
+    """Region tasks fanned out over spawned processes count what inline counting does."""
+    bam_a = str(tmp_path / "a.bam")
+    bam_b = str(tmp_path / "b.bam")
+    _write_bam(bam_a, [_read(i, "A" * 50, cb=f"BC{i % 4}-1", ub=f"UMI{i:05}A43") for i in range(60)])
+    _write_bam(bam_b, [_read(i, "C" * 50, cb=f"BC{i % 4}-1", ub=f"UMI{i:05}B77") for i in range(60)])
+    handler = BarcodeHandler([f"BC{i}-1" for i in range(4)] * 2, RG_tags=["a"] * 4 + ["b"] * 4)
+    positions = {"chr1": np.array([10, 20, 45])}
+    bams = {"a": bam_a, "b": bam_b}
+    inline = count_snps(bams, positions, handler, joblib_n_jobs=None, joblib_verbosity=0, native=False)
+    spawned = count_snps(bams, positions, handler, joblib_n_jobs=2, joblib_verbosity=0, native=False)
+    assert set(inline) == set(spawned) == {"chr1"}
+    for calls in (inline["chr1"], spawned["chr1"]):
+        calls.minimize_memory_footprint()
+    assert inline["chr1"].n_snp_calls > 0
+    np.testing.assert_array_equal(spawned["chr1"].molecules, inline["chr1"].molecules)
+    np.testing.assert_array_equal(spawned["chr1"].snp_calls, inline["chr1"].snp_calls)
+
+
 def test_diagnostics_helpers(tmp_path):
     from demuxalot_tpu.utils import compute_qualities, summarize_counted_SNPs
     import pandas as pd

@@ -309,8 +309,8 @@ def test_snp_aggregated_logits_matches_oracle():
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 
-def test_materialize_logits_and_probs_host_path(monkeypatch):
-    """The slow-link host softmax equals the device softmax to float32 ulps."""
+def test_materialize_logits_and_probs_device_softmax():
+    """Posterior frames come from the device softmax, read back as they are."""
     import jax
     import jax.numpy as jnp
 
@@ -319,13 +319,7 @@ def test_materialize_logits_and_probs_host_path(monkeypatch):
     rng = np.random.RandomState(3)
     logits_dev = jnp.asarray(rng.randn(257, 23).astype(np.float32) * 10)
     want = np.asarray(jax.nn.softmax(logits_dev, axis=-1))
-
-    monkeypatch.setattr(D, "_SLOW_LINK_BYTES_PER_S", float("inf"))  # force host path
     logits, probs = D._materialize_logits_and_probs(logits_dev)
     np.testing.assert_array_equal(logits, np.asarray(logits_dev))
-    np.testing.assert_allclose(probs, want, rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(probs, want)
     np.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-6)
-
-    monkeypatch.setattr(D, "_SLOW_LINK_BYTES_PER_S", 0.0)  # force device path
-    _lg, probs_dev_path = D._materialize_logits_and_probs(logits_dev)
-    np.testing.assert_array_equal(probs_dev_path, want)

@@ -3,7 +3,7 @@
 Launches two OS processes, each with 4 virtual CPU devices, joined through
 jax.distributed into one 8-device mesh. The EM E-step + psum'd M-step must
 reproduce the single-process result — this exercises exactly the machinery
-a multi-host TPU pod uses (process-spanning mesh, cross-process collectives,
+a multi-host cluster uses (process-spanning mesh, cross-process collectives,
 global array placement).
 """
 import socket
@@ -46,9 +46,8 @@ def test_two_process_distributed_em(tmp_path):
     # single-process reference on the plain 8-device mesh
     from demuxalot_tpu.ops import likelihood as L
     from demuxalot_tpu.parallel.mesh import make_mesh
-    from demuxalot_tpu.parallel.sharded import ShardedDemultiplexer, _build_mstep
+    from demuxalot_tpu.parallel.sharded import ShardedDemultiplexer
     from demuxalot_tpu.sim import synthesize_device_workload
-    import jax
 
     N_B, N_D, N_S, CPB = 1024, 4, 64, 8
     np.random.seed(0)
@@ -61,14 +60,14 @@ def test_two_process_distributed_em(tmp_path):
     from demuxalot_tpu.parallel.sharded import ColumnDataset
 
     packed = ColumnDataset(cb, vid, q)
-    entry_e, _ = sh._shard_inputs(packed, N_B, n_genotypes, n_variants, build_mstep=False)
+    entry_e, entry_m = sh._shard_inputs(packed, N_B, build_mstep=True)
     betas_r, v2s_r, zero_r, one_r = sh._replicate(
         betas, v2s, np.float32(0.0), np.float32(1.0)
     )
     estep, eargs = sh._make_estep(entry_e, mixing, pen, N_S, 0.01)
-    mstep = jax.jit(_build_mstep(sh.mesh, n_variants, n_genotypes, 2.0, sh.call_chunk))
+    mstep, margs = sh._make_mstep(entry_m, n_variants, n_genotypes)
     logits, probs = estep(betas_r, zero_r, v2s_r, *eargs)
-    addition = mstep(probs, one_r, entry_e["vid_v"], entry_e["cb_v"], entry_e["q_v"])
+    addition = mstep(probs, one_r, *margs)
 
     np.testing.assert_allclose(result["logits"], np.asarray(logits)[:N_B], rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(result["addition"], np.asarray(addition), rtol=1e-5, atol=1e-6)

@@ -154,25 +154,6 @@ def test_collapse_calls_matches_numpy_path(monkeypatch):
 
 
 @pytest.mark.skipif(not gxx_available, reason="no C++ toolchain")
-def test_tile_scatter_matches_numpy_path(monkeypatch):
-    """Native fused tile layout == the numpy index-math path, bit-exact."""
-    from demuxalot_tpu.ops.tiling import tile_barcode_calls
-
-    rng = np.random.RandomState(12)
-    n, n_barcodes = 200_000, 3_001
-    cb = np.sort(rng.randint(0, n_barcodes, n)).astype(np.int32)
-    vid = rng.randint(0, 9_999, n).astype(np.int32)
-    q = rng.rand(n).astype(np.float32)
-    native = tile_barcode_calls(cb, vid, q, n_barcodes, tile_barcodes=32, chunk_calls=512)
-    _force_numpy_fallback(monkeypatch)
-    ref = tile_barcode_calls(cb, vid, q, n_barcodes, tile_barcodes=32, chunk_calls=512)
-    np.testing.assert_array_equal(native.vid, ref.vid)
-    np.testing.assert_array_equal(native.q, ref.q)
-    np.testing.assert_array_equal(native.seg_group, ref.seg_group)
-    np.testing.assert_array_equal(native.chunk2tile, ref.chunk2tile)
-
-
-@pytest.mark.skipif(not gxx_available, reason="no C++ toolchain")
 def test_match_compact_matches_numpy_join(monkeypatch):
     """Fused native calls->variants join == the numpy join, incl. drops."""
     from demuxalot_tpu.frontend.snp_counter import MOLECULE_DTYPE, SNP_CALL_DTYPE, CompressedSNPCalls
@@ -217,45 +198,6 @@ def test_hash_match_empty_table():
         np.empty(0, np.int64), np.empty(0, np.int64), np.arange(10, dtype=np.int64)
     )
     np.testing.assert_array_equal(out, np.full(10, -1))
-
-
-@pytest.mark.skipif(not gxx_available, reason="no C++ toolchain")
-@pytest.mark.parametrize("n_bands,tb,tc,seed", [
-    (5, 32, 512, 0),
-    (1, 64, 512, 1),    # single band: the M-step layout shape
-    (16, 32, 384, 2),   # many bands, sparse tiles
-])
-def test_banded_tile_build_matches_numpy_path(monkeypatch, n_bands, tb, tc, seed):
-    """Fused C++ banded layout build == the per-band numpy definition.
-
-    Bit-identical across every BandedTiledCalls field, including chunk
-    order, group-lane slots, and stability of call order within a
-    (band, barcode) group.
-    """
-    from demuxalot_tpu.ops.tiling import tile_barcode_calls_banded
-
-    rng = np.random.RandomState(seed)
-    n, n_barcodes, n_variants = 120_000, 1_500, 40_000
-    cb = np.sort(rng.randint(0, n_barcodes, n).astype(np.int32))
-    vid = rng.randint(0, n_variants, n).astype(np.int32)
-    q = rng.rand(n).astype(np.float32)
-
-    native = tile_barcode_calls_banded(
-        cb, vid, q, n_barcodes, n_variants=n_variants, n_bands=n_bands,
-        tile_barcodes=tb, chunk_calls=tc,
-    )
-    _force_numpy_fallback(monkeypatch)
-    ref = tile_barcode_calls_banded(
-        cb, vid, q, n_barcodes, n_variants=n_variants, n_bands=n_bands,
-        tile_barcodes=tb, chunk_calls=tc,
-    )
-    for field in ("vid", "seg_group", "q", "chunk2tile",
-                  "band_chunk_offsets", "band_edges"):
-        np.testing.assert_array_equal(
-            getattr(native, field), getattr(ref, field), err_msg=field
-        )
-    for field in ("n_barcodes", "n_tiles", "tile_barcodes", "chunk_calls", "n_bands"):
-        assert getattr(native, field) == getattr(ref, field), field
 
 
 @pytest.mark.skipif(not gxx_available, reason="no C++ toolchain")
@@ -342,50 +284,39 @@ def test_collapse_device_order_matches_legacy_collapse(monkeypatch):
     np.testing.assert_array_equal(soa.count, legacy["barcode_variant_count"][order])
 
 
+@pytest.mark.parametrize("change", ["none", "source", "flags"])
+def test_native_library_path_is_keyed(tmp_path, change):
+    """The library file name changes with the source and the compile flags."""
+    from demuxalot_tpu import native
+
+    src = tmp_path / "keyed.cpp"
+    src.write_text('extern "C" int answer() { return 1; }\n')
+    base = native.library_path(src, extra=("-pthread",))
+    if change == "source":
+        src.write_text('extern "C" int answer() { return 2; }\n')
+    extra = ("-pthread", "-DOTHER") if change == "flags" else ("-pthread",)
+    other = native.library_path(src, extra=extra)
+    assert (other == base) == (change == "none")
+    assert base.parent == native.BUILD_DIR
+    assert "-march=native" not in native.compile_command(src, "out", extra)
+
+
 @pytest.mark.skipif(not gxx_available, reason="no C++ toolchain")
-def test_gather3_matches_numpy(monkeypatch):
-    from demuxalot_tpu.native.hostops import take3
+def test_build_library_rebuilds_only_on_change(tmp_path, monkeypatch):
+    """A built library is reused as is; an edited source gets a new one."""
+    import ctypes
 
-    rng = np.random.RandomState(3)
-    n = 80_000
-    a = rng.randint(0, 1 << 30, n).astype(np.int32)
-    b = rng.randint(0, 1 << 30, n).astype(np.int32)
-    c = rng.rand(n).astype(np.float32)
-    order = rng.permutation(n).astype(np.int64)
-    ga, gb, gc = take3(order, a, b, c)
-    np.testing.assert_array_equal(ga, a[order])
-    np.testing.assert_array_equal(gb, b[order])
-    np.testing.assert_array_equal(gc, c[order])
+    from demuxalot_tpu import native
 
-
-def test_sharded_mstep_layout_native_vs_numpy_at_threshold(monkeypatch):
-    """ShardedMstepLayout at >= 65536 calls: native banded build == numpy.
-
-    Regression for a segfault: the M-step's axis-swapped banded tiler must
-    size its barcode-axis lookup table from the per-shard barcode count —
-    the native band_counts path only engages at 65536+ calls, below every
-    other test shape, and indexed the 1-entry lut with barcode ids.
-    """
-    from demuxalot_tpu.ops.pallas_mstep import ShardedMstepLayout
-
-    rng = np.random.RandomState(5)
-    n_calls, n_variants, per_shard = 70_000, 4096, 2048
-    vid = rng.randint(0, n_variants, n_calls).astype(np.int32)
-    cb_local = rng.randint(0, per_shard, n_calls).astype(np.int32)
-    q = rng.uniform(0.01, 0.5, n_calls).astype(np.float32)
-    shard_of = np.zeros(n_calls, dtype=np.int32)
-
-    def build():
-        return ShardedMstepLayout(
-            cb_local, vid, q, shard_of, n_shards=1, n_variants=n_variants,
-            chunk_calls=512, n_genotypes=8, n_barcodes_per_shard=per_shard,
-        )
-
-    native = build()
-    _force_numpy_fallback(monkeypatch)
-    fallback = build()
-    np.testing.assert_array_equal(native.cb_global, fallback.cb_global)
-    np.testing.assert_array_equal(native.vl, fallback.vl)
-    np.testing.assert_array_equal(native.q, fallback.q)
-    np.testing.assert_array_equal(native.chunk_bounds, fallback.chunk_bounds)
-    np.testing.assert_array_equal(native.chunk_suboff, fallback.chunk_suboff)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "keyed.cpp"
+    src.write_text('extern "C" int answer() { return 7; }\n')
+    lib = native.build_library(src)
+    stamp = lib.stat().st_mtime_ns
+    assert native.build_library(src) == lib
+    assert lib.stat().st_mtime_ns == stamp
+    assert ctypes.CDLL(str(lib)).answer() == 7
+    src.write_text('extern "C" int answer() { return 8; }\n')
+    rebuilt = native.build_library(src)
+    assert rebuilt != lib
+    assert ctypes.CDLL(str(rebuilt)).answer() == 8

@@ -162,7 +162,7 @@ def test_reference_scale_quality(tmp_path_factory):
         eval_noise(noise_fraction, np.random.RandomState(1000 + int(noise_fraction * 100)))
 
     # --- second calibration family for the auto-damping selector -----------
-    # (VERDICT r4 weak #5: the disagreement threshold was calibrated on one
+    # (the disagreement threshold was first calibrated on one
     # synthetic family). Different regime on purpose — fewer donors, denser
     # SNPs, fewer reads — and fully independent RNG: the global stream
     # feeding the sections above is already consumed, so reseeding here
@@ -266,7 +266,7 @@ def test_reference_scale_quality(tmp_path_factory):
     assert (results["0.95"]["loss_after_damped_em"]
             < results["0.95"]["loss_prior_only"])
     # damping="auto" must match the better of plain EM and prior-only at
-    # every point — the selector's whole contract (VERDICT r3 ask #5)
+    # every point — the selector's whole contract
     for point, row in results.items():
         bar = min(row["loss_prior_only"], row["loss_after_em"]) + 1e-6
         assert row["loss_after_auto_em"] <= bar, (point, row)
@@ -293,11 +293,10 @@ def test_reference_scale_quality(tmp_path_factory):
 def test_end_to_end_harness_smoke(monkeypatch):
     """The E2E artifact harness stays runnable (quick shape, no baseline).
 
-    Guards the reproducibility of E2E_r05.json / E2E_PMBC_r05.json: the
-    harness is the round artifact generator, so its breakage should show
-    up in a perf run, not when regenerating the artifact.
+    Guards the reproducibility of E2E.json / E2E_PMBC.json: the harness
+    is the artifact generator, so its breakage should show up in a perf
+    run, not when regenerating the artifact.
     """
-    monkeypatch.setenv("DEMUX_TPU_WAIT_S", "0")
     import sys
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     from benchmarks.end_to_end import main as e2e_main

@@ -116,14 +116,14 @@ def test_sharded_em_with_prior_logits(small_problem):
 
 
 def test_sharded_pallas_estep_matches(small_problem):
-    """Force the per-shard Pallas kernel (interpret on CPU) across 8 devices."""
+    """The per-shard E-step kernel (interpreted on CPU) across 8 devices."""
     genotypes, barcode_handler, calls = small_problem
     logits1, probs1 = Demultiplexer.predict_posteriors(
         calls, genotypes, barcode_handler, doublet_prior=0.35
     )
     sharded = ShardedDemultiplexer(make_mesh())
     try:
-        sharded.use_pallas = True
+        sharded.use_pallas = "interpret"
         logits8, probs8 = sharded.predict_posteriors(
             calls, genotypes, barcode_handler, doublet_prior=0.35
         )
@@ -177,7 +177,6 @@ def test_put_row_shards_assembles_global_array():
 def test_shard_subset_layouts_match_full():
     """Building only a subset of shards yields the same rows as the full build."""
     from demuxalot_tpu.ops import packing as P
-    from demuxalot_tpu.ops.tiling import tile_barcode_calls_sharded
 
     rng = np.random.RandomState(3)
     n_calls, n_barcodes, n_shards = 5000, 256, 4
@@ -185,16 +184,25 @@ def test_shard_subset_layouts_match_full():
     vid = rng.randint(0, 500, n_calls).astype(np.int32)
     q = rng.uniform(1e-4, 0.5, n_calls).astype(np.float32)
 
-    full = tile_barcode_calls_sharded(cb, vid, q, n_barcodes, n_shards=n_shards)
-    subset = tile_barcode_calls_sharded(
-        cb, vid, q, n_barcodes, n_shards=n_shards,
-        shard_ids=[1, 3], n_chunks_floor=full.n_chunks,
+    # shard-local kernel runs (what each process builds for its own shards)
+    per_shard = n_barcodes // n_shards
+    counts = np.bincount(cb // per_shard, minlength=n_shards)
+    full_dev = P.device_pack_columns(cb, vid, q, n_barcodes, n_shards=n_shards)
+    sub_dev = P.device_pack_columns(
+        cb, vid, q, n_barcodes, n_shards=n_shards, shard_ids=[1, 3],
+        per_shard_calls_floor=full_dev.per_shard_calls,
     )
-    assert subset.n_chunks == full.n_chunks
-    np.testing.assert_array_equal(subset.vid[0], full.vid[1])
-    np.testing.assert_array_equal(subset.vid[1], full.vid[3])
-    np.testing.assert_array_equal(subset.q[1], full.q[3])
-    np.testing.assert_array_equal(subset.chunk_bounds[0], full.chunk_bounds[1])
+
+    def unplaced(stacked):
+        return stacked
+
+    full = ShardedDemultiplexer._kernel_runs(full_dev, counts, unplaced)
+    subset = ShardedDemultiplexer._kernel_runs(sub_dev, counts[[1, 3]], unplaced)
+    for got, want in zip(subset, full):  # offsets, vid, q
+        assert got.shape[1:] == want.shape[1:]
+        np.testing.assert_array_equal(got[0], want[1])
+        np.testing.assert_array_equal(got[1], want[3])
+    np.testing.assert_array_equal(full[0][:, per_shard], counts)
 
     rec = np.recarray(n_calls, dtype=P.BARCODE_CALLS_DTYPE)
     rec["variant_id"], rec["compressed_cb"], rec["p_base_wrong"] = vid, cb, q
@@ -208,107 +216,65 @@ def test_shard_subset_layouts_match_full():
     np.testing.assert_array_equal(dev_sub.q_v, dev_full.q_v[2 * w : 3 * w])
 
 
-def test_dot_words_split_accuracy():
-    """Two-word bf16 split against an exact operand is ~f32-accurate."""
-    import jax.numpy as jnp
-
-    from demuxalot_tpu.ops.pallas_likelihood import dot_words
-
-    rng = np.random.RandomState(0)
-    exact = rng.choice([0.0, 0.5, 1.0], size=(48, 16)).astype(np.float32)
-    dense = rng.uniform(1e-4, 1.0, size=(16, 256)).astype(np.float32)
-    want = exact.astype(np.float64) @ dense.astype(np.float64)
-    got = np.asarray(dot_words(jnp.asarray(exact), jnp.asarray(dense), ((1,), (0,)), 2))
-    assert np.max(np.abs(got - want) / (1e-9 + np.abs(want))) < 1e-5
-
-    # split side may also be the left operand
-    got_a = np.asarray(
-        dot_words(jnp.asarray(dense.T), jnp.asarray(exact.T), ((1,), (0,)), 2, split="a")
+@pytest.mark.parametrize("doublet_prior", [0.0, 0.35])
+def test_kernel_engines_match_xla_engine(small_problem, doublet_prior):
+    """Both engines on the E-step kernel (interpreted) == the XLA single-device path."""
+    genotypes, barcode_handler, calls = small_problem
+    logits_x, probs_x = Demultiplexer.predict_posteriors(
+        calls, genotypes, barcode_handler, doublet_prior=doublet_prior
     )
-    np.testing.assert_allclose(got_a, want.T, rtol=1e-5, atol=1e-6)
-
-
-def test_bf16_words_reconstruction():
-    """The shared word-split helper keeps the posterior-safe precision contract.
-
-    Every in-kernel matmul strategy (dot_words, dot_words_stacked, the
-    stack_scatter branch) now routes through bf16_words; this pins its
-    invariants: each word is exactly representable in bf16, and the word sum
-    restores ~16 mantissa bits of the input.
-    """
-    import jax.numpy as jnp
-
-    from demuxalot_tpu.ops.pallas_likelihood import bf16_words
-
-    rng = np.random.RandomState(7)
-    x_np = rng.uniform(-8.0, 8.0, size=(64, 96)).astype(np.float32)
-    x = jnp.asarray(x_np)
-
-    words = bf16_words(x, 2)
-    assert len(words) == 2
-    for w in words:  # bf16-exactness: re-rounding must be the identity
-        w_np = np.asarray(w)
-        np.testing.assert_array_equal(
-            w_np, np.asarray(jnp.asarray(w_np).astype(jnp.bfloat16).astype(jnp.float32))
-        )
-    recon = np.asarray(words[0] + words[1])
-    rel = np.abs(recon - x_np) / np.maximum(np.abs(x_np), 1e-6)
-    assert rel.max() < 2**-15  # two 8-bit-mantissa words ≈ 16 mantissa bits
-
-    # one word degenerates to plain bf16 rounding (the "default" strategy)
-    (single,) = bf16_words(x, 1)
-    np.testing.assert_array_equal(
-        np.asarray(single), np.asarray(x.astype(jnp.bfloat16).astype(jnp.float32))
+    learnt_x, em_x = Demultiplexer.learn_genotypes(
+        calls, genotypes, barcode_handler, n_iterations=2, doublet_prior=doublet_prior
     )
-
-
-def test_sharded_banded_estep_matches_plain():
-    """Variant-banded sharded E-step == plain sharded E-step (virtual mesh)."""
-    import jax
-    import jax.numpy as jnp
-
-    from demuxalot_tpu.ops import likelihood as L
-    from demuxalot_tpu.ops.pallas_likelihood import build_mixing_sl, padded_pg
-    from demuxalot_tpu.ops.tiling import tile_barcode_calls_sharded
-    from demuxalot_tpu.parallel.mesh import make_mesh
-    from demuxalot_tpu.parallel.sharded import _build_estep_pallas
-    from demuxalot_tpu.sim import synthesize_device_workload
-
-    mesh = make_mesh()
-    S = mesh.devices.size
-    n_barcodes, n_donors, n_snps, cpb = 64 * S, 5, 128, 12
-    betas, v2s, vid, cb, q, _ = synthesize_device_workload(n_barcodes, n_donors, n_snps, cpb, seed=4)
-    n_variants = betas.shape[0]
-    mixing, _names = L.pseudogenotype_mixing([f"D{i}" for i in range(n_donors)], 0.3)
-    pen = L.doublet_penalties(n_donors, 0.3)
-    pg = mixing.shape[1]
-    pgp = padded_pg(pg)
-    gp_args = (jnp.asarray(betas), jnp.asarray(v2s))
-
-    order = np.argsort(cb, kind="stable")
-    results = []
-    for n_bands in (1, 3):
-        st = tile_barcode_calls_sharded(
-            cb[order], vid[order], q[order], n_barcodes, n_shards=S,
-            tile_barcodes=16, chunk_calls=128, pgp=pgp,
-            n_variants=n_variants, n_bands=n_bands,
+    sharded = ShardedDemultiplexer(make_mesh())
+    sharded.use_pallas = "interpret"
+    try:
+        Demultiplexer.use_pallas = "interpret"
+        logits_k, probs_k = Demultiplexer.predict_posteriors(
+            calls, genotypes, barcode_handler, doublet_prior=doublet_prior
         )
-        estep = jax.jit(_build_estep_pallas(mesh, n_snps, 0.01, st, pg))
-        shd = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec("barcodes"))
-        rep = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec())
-        put_s = lambda x: jax.device_put(x, shd)
-        put_r = lambda x: jax.device_put(np.asarray(x), rep)
-        pen_p = np.zeros((1, pgp), np.float32)
-        pen_p[0, :pg] = pen
-        logits, _probs = estep(
-            put_r(betas), put_r(np.float32(0.0)), put_r(v2s),
-            put_r(build_mixing_sl(mixing)), put_r(pen_p),
-            put_s(st.vid), put_s(st.seg_group), put_s(st.q),
-            put_s(st.chunk_bounds), put_s(st.chunk_suboff),
+        learnt_k, em_k = Demultiplexer.learn_genotypes(
+            calls, genotypes, barcode_handler, n_iterations=2, doublet_prior=doublet_prior
         )
-        results.append(np.asarray(logits)[:n_barcodes])
+        compact = Demultiplexer.predict_posteriors_compact(
+            calls, genotypes, barcode_handler, doublet_prior=doublet_prior, k=2
+        )
+    finally:
+        Demultiplexer.use_pallas = None
+    logits_s, probs_s = sharded.predict_posteriors(
+        calls, genotypes, barcode_handler, doublet_prior=doublet_prior
+    )
+    learnt_s, em_s = sharded.learn_genotypes(
+        calls, genotypes, barcode_handler, n_iterations=2, doublet_prior=doublet_prior
+    )
+    for logits in (logits_k, logits_s):
+        assert list(logits.columns) == list(logits_x.columns)
+        np.testing.assert_allclose(logits.values, logits_x.values, rtol=1e-5, atol=1e-4)
+    for probs in (probs_k, probs_s, em_k, em_s):
+        np.testing.assert_allclose(probs.values.sum(axis=1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(probs_k.values, probs_x.values, atol=1e-5)
+    np.testing.assert_allclose(em_k.values, em_x.values, atol=1e-4)
+    np.testing.assert_allclose(em_s.values, em_x.values, atol=1e-4)
+    for learnt in (learnt_k, learnt_s):
+        np.testing.assert_allclose(
+            learnt.variant_betas, learnt_x.variant_betas, rtol=1e-4, atol=1e-2
+        )
+    np.testing.assert_array_equal(compact.assignment, logits_k.values.argmax(axis=1))
 
-    np.testing.assert_allclose(results[1], results[0], rtol=1e-5, atol=1e-5)
+
+def test_use_pallas_true_raises_off_gpu(small_problem):
+    """Asking for the compiled kernel where it cannot compile raises, never falls back."""
+    genotypes, barcode_handler, calls = small_problem
+    sharded = ShardedDemultiplexer(make_mesh())
+    sharded.use_pallas = True
+    with pytest.raises(RuntimeError, match="only for a GPU"):
+        sharded.predict_posteriors(calls, genotypes, barcode_handler)
+    try:
+        Demultiplexer.use_pallas = True
+        with pytest.raises(RuntimeError, match="only for a GPU"):
+            Demultiplexer.predict_posteriors(calls, genotypes, barcode_handler)
+    finally:
+        Demultiplexer.use_pallas = None
 
 
 def test_sharded_accepts_packed_calls(small_problem):
@@ -338,7 +304,7 @@ def test_sharded_accepts_packed_calls(small_problem):
 
 
 def test_sharded_layout_cache_zero_retile(small_problem):
-    """Predict-after-learn on one PackedCalls re-tiles nothing (VERDICT r4 #4).
+    """Predict-after-learn on one PackedCalls re-lays out nothing.
 
     The shard layouts cache on the dataset; the E-step tiling is sized at
     the donor count's max pseudo-genotype width so learn(doublet_prior=0)

@@ -305,14 +305,9 @@ def test_stage_timings_hook(synthetic_data):
     link_accounting section; the hook must be a pure observer (identical
     posteriors) and default-off (no keys recorded when unset).
     """
-    import os
-
     from demuxalot_tpu.models import demux as demux_mod
 
     _f, genotypes, _truth, barcode_handler, calls = synthetic_data
-    # tiny frames measure a borderline link rate, so the adaptive softmax
-    # branch could flip between the two runs (last-ulp differences); pin it
-    os.environ["DEMUX_HOST_SOFTMAX"] = "0"
     try:
         _lg, probs_plain = Demultiplexer.predict_posteriors(
             calls, genotypes, barcode_handler=barcode_handler, doublet_prior=0.35
@@ -330,7 +325,6 @@ def test_stage_timings_hook(synthetic_data):
         learn_detail = demux_mod.STAGE_TIMINGS
     finally:
         demux_mod.STAGE_TIMINGS = None
-        os.environ["DEMUX_HOST_SOFTMAX"] = "0"  # conftest default
 
     np.testing.assert_array_equal(probs_plain.values, probs_timed.values)
     for key in ("pack_s", "forward_s", "materialize_s", "d2h_logits_s",
@@ -354,75 +348,69 @@ def test_packed_calls_reuse(synthetic_data, tmp_path):
     per-call packing path, reuse across the learn -> predict-on-learnt flow,
     and a hard error when the variant registry changes.
     """
-    import os
-
     from demuxalot_tpu import PackedCalls
 
     _f, genotypes, _truth, handler, calls = synthetic_data
-    os.environ["DEMUX_HOST_SOFTMAX"] = "1"  # pin the adaptive branch (ulps)
-    try:
-        packed = Demultiplexer.pack_dataset(calls, genotypes)
-        assert isinstance(packed, PackedCalls)
+    packed = Demultiplexer.pack_dataset(calls, genotypes)
+    assert isinstance(packed, PackedCalls)
 
-        learnt_ref, probs_ref = Demultiplexer.learn_genotypes(
-            calls, genotypes, barcode_handler=handler, n_iterations=3
-        )
-        learnt_p, probs_p = Demultiplexer.learn_genotypes(
-            packed, genotypes, barcode_handler=handler, n_iterations=3
-        )
-        np.testing.assert_array_equal(probs_ref.values, probs_p.values)
-        np.testing.assert_array_equal(learnt_ref.get_betas(), learnt_p.get_betas())
+    learnt_ref, probs_ref = Demultiplexer.learn_genotypes(
+        calls, genotypes, barcode_handler=handler, n_iterations=3
+    )
+    learnt_p, probs_p = Demultiplexer.learn_genotypes(
+        packed, genotypes, barcode_handler=handler, n_iterations=3
+    )
+    np.testing.assert_array_equal(probs_ref.values, probs_p.values)
+    np.testing.assert_array_equal(learnt_ref.get_betas(), learnt_p.get_betas())
 
-        # the learnt clone differs only in beta values: the SAME packed
-        # dataset serves predict (the standard product flow)
-        lg_ref, pr_ref = Demultiplexer.predict_posteriors(
-            calls, learnt_ref, barcode_handler=handler, doublet_prior=0.35
-        )
-        lg_p, pr_p = Demultiplexer.predict_posteriors(
-            packed, learnt_p, barcode_handler=handler, doublet_prior=0.35
-        )
-        np.testing.assert_array_equal(lg_ref.values, lg_p.values)
-        np.testing.assert_array_equal(pr_ref.values, pr_p.values)
+    # the learnt clone differs only in beta values: the SAME packed
+    # dataset serves predict (the standard product flow)
+    lg_ref, pr_ref = Demultiplexer.predict_posteriors(
+        calls, learnt_ref, barcode_handler=handler, doublet_prior=0.35
+    )
+    lg_p, pr_p = Demultiplexer.predict_posteriors(
+        packed, learnt_p, barcode_handler=handler, doublet_prior=0.35
+    )
+    np.testing.assert_array_equal(lg_ref.values, lg_p.values)
+    np.testing.assert_array_equal(pr_ref.values, pr_p.values)
 
-        # the flat device layout was built once and shared
-        assert len(packed._device_flat) == 1
+    # the flat device layout was built once and shared
+    assert len(packed._device_flat) == 1
 
-        # the staged generator accepts it too
-        *_, (probs_gen, _dbg) = Demultiplexer.staged_genotype_learning(
-            packed, genotypes, barcode_handler=handler, n_iterations=3
-        )
-        np.testing.assert_array_equal(probs_gen.values, probs_p.values)
+    # the staged generator accepts it too
+    *_, (probs_gen, _dbg) = Demultiplexer.staged_genotype_learning(
+        packed, genotypes, barcode_handler=handler, n_iterations=3
+    )
+    np.testing.assert_array_equal(probs_gen.values, probs_p.values)
 
-        # damping="auto" shares the packed dataset between its two runs
-        _la, probs_auto = Demultiplexer.learn_genotypes(
-            packed, genotypes, barcode_handler=handler, n_iterations=2,
-            damping="auto",
-        )
-        assert np.allclose(probs_auto.sum(axis=1).values, 1, atol=1e-3)
+    # damping="auto" shares the packed dataset between its two runs
+    _la, probs_auto = Demultiplexer.learn_genotypes(
+        packed, genotypes, barcode_handler=handler, n_iterations=2,
+        damping="auto",
+    )
+    assert np.allclose(probs_auto.sum(axis=1).values, 1, atol=1e-3)
 
-        # a genotypes object with a DIFFERENT registry must be rejected
-        changed = genotypes.clone()
-        extra = pd.DataFrame(
-            {d: [1.0] for d in genotypes.genotype_names},
-            index=pd.MultiIndex.from_tuples(
-                [("chr1", 10**7, "A")], names=["CHROM", "POS", "BASE"]
-            ),
+    # a genotypes object with a DIFFERENT registry must be rejected
+    changed = genotypes.clone()
+    extra = pd.DataFrame(
+        {d: [1.0] for d in genotypes.genotype_names},
+        index=pd.MultiIndex.from_tuples(
+            [("chr1", 10**7, "A")], names=["CHROM", "POS", "BASE"]
+        ),
+    )
+    extra_path = str(tmp_path / "extra_betas.parquet")
+    extra.to_parquet(extra_path)
+    changed.add_prior_betas(extra_path, prior_strength=1.0)
+    with pytest.raises(ValueError, match="different variant registry"):
+        Demultiplexer.predict_posteriors(
+            packed, changed, barcode_handler=handler
         )
-        extra_path = str(tmp_path / "extra_betas.parquet")
-        extra.to_parquet(extra_path)
-        changed.add_prior_betas(extra_path, prior_strength=1.0)
-        with pytest.raises(ValueError, match="different variant registry"):
-            Demultiplexer.predict_posteriors(
-                packed, changed, barcode_handler=handler
-            )
-    finally:
-        os.environ["DEMUX_HOST_SOFTMAX"] = "0"  # conftest default
 
 
 def test_predict_posteriors_compact(synthetic_data):
     """Compact top-k output matches the full-frame contract exactly.
 
-    VERDICT r4 ask #3: the compact path must move <= 1/4 the bytes while
+    The compact path must move <= 1/4 the bytes while
     keeping assignments bit-identical to argmax over the full f32 frame,
     top-k logits as exact frame entries, and optional bf16 logits within
     1 bf16 ulp.
